@@ -58,16 +58,18 @@ foreign = b"".join(stdgz.compress(data[i:i + 8192], 6)
                    for i in range(0, 32768, 8192))
 assert pgzf.decompress(foreign) == data[:32768]
 print("foreign multi-member stream decoded")
-# On an accelerator backend the same stream lands DEVICE-resident:
+# The same stream lands DEVICE-resident (on the CPU the decode kernel
+# runs interpreted):
 #   plain, lens = pgzf.decompress_to_device(foreign)
 
-# --- device encode quality knobs (TPU backends) -----------------------------
-# default: sort matcher, exact-16 lengths, no LCP pass (ratio ~0.316)
+# --- device encode quality knobs (the device engine) -----------------------
+# default: sort matcher, exact 16-byte lengths extended to full matches
 #   pgzf.compress(data, engine="tpu")
-# best ratio: hash-chain depth 8 + full LCP extension (~0.306):
+# deeper search: hash-chain depth 8
 #   pgzf.compress(data, engine="tpu",
-#                 options=EncodeOptions(matcher="chain", max_chain=8,
-#                                       lcp_rounds=8))
+#                 options=EncodeOptions(matcher="chain", max_chain=8))
+# faster, shorter matches: lengths capped at 16 bytes
+#   pgzf.compress(data, engine="tpu", options=EncodeOptions(lcp_rounds=4))
 
 # --- completion protocol ----------------------------------------------------
 import io

@@ -1,7 +1,7 @@
-"""libflate_tpu — a TPU-native DEFLATE/ZLIB/GZIP compression framework.
+"""libflate_tpu — a DEFLATE/ZLIB/GZIP compression framework for accelerators.
 
 A from-scratch reimplementation of the capability surface of sile/libflate
-(RFC-1951/1950/1952 codecs) designed TPU-first: array-in/array-out,
+(RFC-1951/1950/1952 codecs) designed for data parallelism: array-in/array-out,
 block-parallel, table-driven and branchless on the device path
 (JAX/XLA/Pallas), with serial-Python and C++ host engines for oracle and
 host-side work.

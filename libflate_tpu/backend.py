@@ -5,7 +5,8 @@ engines implement the same array-in/array-out contract:
 
 * ``serial``  — pure-Python/numpy oracle (always available, slow)
 * ``native``  — C++ host extension (fast single-core host path)
-* ``tpu``     — JAX/Pallas pipeline (block-parallel device path)
+* ``tpu``     — JAX pipeline on the accelerator (block-parallel device
+  path; the engine keeps its first device's name)
 
 ``auto`` picks the fastest available engine for the request size.
 """
@@ -40,7 +41,8 @@ def register(engine: Engine, make_default: bool = False) -> None:
 
 def get(name: str | None = None) -> Engine:
     if name in (None, "auto"):
-        # preference order: native > serial for host work; tpu is opt-in
+        # preference order: native > serial for host work; the device
+        # engine is opt-in
         for candidate in ("native", "serial"):
             e = _engines.get(candidate)
             if e is not None and e.available():

@@ -11,7 +11,7 @@ when input runs short, so decoding resumes exactly where it stopped.
 The full in-flight state is explicit and small — (bit cursor, current
 Huffman tables, 32 KiB history tail, container state) — making the
 decoder checkpointable between feeds, which is the chunk/resume design
-the TPU pipelines share (SURVEY.md §5 checkpoint/resume).
+the device pipelines share (SURVEY.md §5 checkpoint/resume).
 """
 from __future__ import annotations
 

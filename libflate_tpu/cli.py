@@ -1,7 +1,7 @@
 """Command-line tool (parity: reference examples/flate.rs).
 
 Subcommands: copy, byte-read, gzip-decode, gzip-decode-multi,
-gzip-encode, zlib-decode, zlib-encode — plus the TPU-native extras
+gzip-encode, zlib-decode, zlib-encode — plus the device-engine extras
 pgzf-encode / pgzf-decode.  "-" means stdin/stdout; /dev/null works as
 an output sink.
 
@@ -115,7 +115,7 @@ class _WriteAdapter:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         prog="libflate-tpu",
-        description="TPU-native DEFLATE/GZIP/ZLIB codec tool")
+        description="DEFLATE/GZIP/ZLIB codec tool (host and device engines)")
     p.add_argument("-i", "--input", default="-")
     p.add_argument("-o", "--output", default="-")
     p.add_argument("-v", "--verbose", action="store_true")

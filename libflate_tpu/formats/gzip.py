@@ -291,7 +291,7 @@ class Trailer:
 
 
 # ---------------------------------------------------------------------------
-# One-shot API (array-in / array-out; the TPU-idiomatic core)
+# One-shot API (array-in / array-out; the device-idiomatic core)
 # ---------------------------------------------------------------------------
 def compress(data: bytes, options=None, header: Header | None = None,
              engine: str | None = None) -> bytes:

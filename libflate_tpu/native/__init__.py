@@ -312,8 +312,8 @@ def inflate_tokens_batch(data: bytes, body_starts, body_ends,
     """Decode member bodies into packed LZ77 tokens (no expansion).
 
     The foreign-stream device-decode bridge: per-member dynamic (or
-    fixed/stored) blocks whose tables cannot ride the shared-table TPU
-    kernels are entropy-decoded here — the sequential phase — and the
+    fixed/stored) blocks whose tables cannot ride the shared-table sync
+    decoder are entropy-decoded here — the sequential phase — and the
     tokens feed the device expansion + CRC chain
     (formats/pgzf._foreign_to_device).
 

@@ -8,7 +8,7 @@
 //   * a fast serial DEFLATE decoder (flat-table Huffman, unrolled copies)
 //   * a fast greedy DEFLATE encoder (hash-head matcher, dynamic blocks
 //     with RLE'd code-length headers — full parity with RFC-1951 §3.2.7)
-//   * batched dynamic-header parsing (feeds the TPU decode pipeline)
+//   * batched dynamic-header parsing (feeds the device decode pipeline)
 //   * bit-stream splicing for parallel-encoded block outputs
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in image).
@@ -1069,7 +1069,7 @@ int lf_inflate(const uint8_t* src, uint64_t n, uint8_t* dst, uint64_t cap,
 }
 
 // ---------------------------------------------------------------------------
-// Batched dynamic-header parse (for the TPU decode pipeline)
+// Batched dynamic-header parse (for the device decode pipeline)
 //   bodies: concatenated member payloads; offsets[i]..offsets[i+1] per member
 //   outputs: lit_lengths (B*286), dist_lengths (B*30), start_bits (B)
 // ---------------------------------------------------------------------------
@@ -1770,7 +1770,7 @@ int lf_deflate_batch(const uint8_t* data, const uint64_t* chunk_offsets,
 // Token-emitting inflate (FOREIGN-stream device-decode bridge).
 // Decodes a full member body — any conformant mix of stored / fixed /
 // per-member dynamic blocks, i.e. streams whose tables can NOT ride the
-// shared-table TPU kernels — into packed LZ77 tokens
+// shared-table sync decoder — into packed LZ77 tokens
 // (lit, or len | dist << 9; ops/device_expand packing) WITHOUT
 // materializing output bytes.  The host does only the sequential
 // entropy phase; expansion + CRC run in the device chain

@@ -1,6 +1,6 @@
 """Device (JAX) bit packing: (value, width) field streams → packed words.
 
-TPU-first replacement for the reference's sequential BitWriter
+Data-parallel replacement for the reference's sequential BitWriter
 (reference: src/bit.rs:4-61).  A DEFLATE bit stream is a concatenation of
 variable-width LSB-first fields; instead of feeding them through a serial
 accumulator, compute every field's absolute bit offset with one exclusive

@@ -1,18 +1,19 @@
 """Device (JAX) CRC-32 and Adler-32 kernels.
 
-TPU-first design — no byte-serial table walk (the reference relies on the
-``crc32fast``/``adler32`` native crates; SURVEY.md §2.2):
+Data-parallel design — no byte-serial table walk (the reference relies
+on the ``crc32fast``/``adler32`` native crates; SURVEY.md §2.2):
 
 * **CRC-32 is linear over GF(2).**  Split the input into 64-byte chunks.
   Each chunk's contribution is ``V = G · bits(chunk)`` where ``G`` is a
   host-precomputed 512×32 bit matrix — evaluated for all chunks at once
-  as one f32 matmul on the MXU (counts ≤ 512 are exact in f32; parity =
-  mod 2).  Chunk contributions fold in log₂(N) tree levels, each level
-  applying a constant 32×32 GF(2) "shift by 64·2^k bytes" matrix — again
-  a matmul.  Total ≈ 32 flops/byte, fully parallel, no gathers.
+  as one matmul.  Chunk contributions fold in log₂(N) tree levels, each
+  level applying a constant 32×32 GF(2) "shift by 64·2^k bytes" matrix —
+  again a matmul.  Every product takes int8 0/1 operands with int32
+  accumulation (``_gf2_dot``), so it is exact on any backend and at any
+  matmul precision setting; parity = the low bit.
 * **Adler-32** is two segmented sums with lazy mod-65521 reduction; the
   weighted sum uses a split 16×16-bit modular multiply to stay inside
-  int32 (TPU has no int64 by default).
+  int32 (JAX runs without 64-bit integers by default).
 
 Both are exact (bit-identical to zlib) and jittable on any backend.
 """
@@ -25,8 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..spec.constants import ADLER32_MOD
-from ..utils.checksum import (CRC_TABLE, _gf2_matrix_times, _shift_operator,
-                              crc32 as _host_crc32)
+from ..utils.checksum import CRC_TABLE, _gf2_matrix_times, _shift_operator
 
 # ---------------------------------------------------------------------------
 # Host-side constant construction
@@ -44,12 +44,12 @@ def _crc_raw_register(data: np.ndarray) -> int:
 
 @functools.lru_cache(maxsize=1)
 def _chunk_basis_matrix() -> np.ndarray:
-    """G: (512, 32) float32 bit matrix; row i = f(chunk with only bit i set).
+    """G: (512, 32) 0/1 matrix; row i = f(chunk with only bit i set).
 
     Bit i corresponds to byte i//8, bit position i%8 (LSB-first, matching
     CRC byte processing order).
     """
-    G = np.zeros((8 * CHUNK, 32), dtype=np.float32)
+    G = np.zeros((8 * CHUNK, 32), dtype=np.int8)
     for i in range(8 * CHUNK):
         chunk = np.zeros(CHUNK, dtype=np.uint8)
         chunk[i // 8] = 1 << (i % 8)
@@ -61,16 +61,11 @@ def _chunk_basis_matrix() -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _level_matrix(level: int) -> np.ndarray:
-    """(32, 32) float32 bit matrix of the shift-by-(CHUNK·2^level)-bytes op.
+    """(32, 32) 0/1 matrix of the shift-by-(CHUNK·2^level)-bytes op.
 
     Element [j, o] = bit o of A(e_j) so that out = (v_bits @ M) % 2.
     """
-    cols = _shift_operator(CHUNK * (1 << level))  # cols[j] = A(e_j) as u32
-    M = np.zeros((32, 32), dtype=np.float32)
-    for j in range(32):
-        for o in range(32):
-            M[j, o] = (int(cols[j]) >> o) & 1
-    return M
+    return _cols_matrix(_shift_operator(CHUNK * (1 << level)))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -84,48 +79,40 @@ def _init_term(n: int) -> int:
 # ---------------------------------------------------------------------------
 # CRC-32 device kernel
 # ---------------------------------------------------------------------------
+def _gf2_dot(x: jnp.ndarray, m) -> jnp.ndarray:
+    """x @ m over GF(2) for 0/1 operands: int8 inputs, int32 sums (at
+    most 512 terms), parity -> int32 0/1."""
+    prod = jax.lax.dot(x.astype(jnp.int8), jnp.asarray(m, jnp.int8),
+                       preferred_element_type=jnp.int32)
+    return prod & 1
+
+
 def _bits_of_bytes(chunks: jnp.ndarray) -> jnp.ndarray:
-    """(M, 64) uint8 -> (M, 512) float32 of bits, LSB-first per byte."""
+    """(M, 64) uint8 -> (M, 512) int8 of bits, LSB-first per byte."""
     shifts = jnp.arange(8, dtype=jnp.uint8)
     bits = (chunks[:, :, None] >> shifts[None, None, :]) & 1
-    return bits.reshape(chunks.shape[0], -1).astype(jnp.float32)
+    return bits.reshape(chunks.shape[0], -1).astype(jnp.int8)
 
 
 @functools.partial(jax.jit, static_argnames=("length",))
 def _crc32_padded(chunks: jnp.ndarray, length: int) -> jnp.ndarray:
     """CRC-32 of ``length`` bytes packed (front-zero-padded) into
     (M, 64) uint8 chunks, M a power of two."""
-    M = chunks.shape[0]
-    bits = _bits_of_bytes(chunks)                       # (M, 512)
-    G = jnp.asarray(_chunk_basis_matrix())              # (512, 32)
-    v = jnp.mod(bits @ G, 2.0)                          # (M, 32) chunk values
-    level = 0
-    while v.shape[0] > 1:
-        lo = v[0::2]                                    # earlier chunks
-        hi = v[1::2]
-        A = jnp.asarray(_level_matrix(level))
-        v = jnp.mod(jnp.mod(lo @ A, 2.0) + hi, 2.0)
-        level += 1
-    vbits = v[0].astype(jnp.uint32)                     # (32,) 0/1
-    value = jnp.sum(vbits << jnp.arange(32, dtype=jnp.uint32))
     init = jnp.uint32(_init_term(length))
-    return (value ^ init) ^ jnp.uint32(0xFFFFFFFF)
+    return (_crc32_f_padded(chunks) ^ init) ^ jnp.uint32(0xFFFFFFFF)
 
 
 @functools.partial(jax.jit, static_argnames=())
 def _crc32_f_padded(chunks: jnp.ndarray) -> jnp.ndarray:
     """Raw f-value (register from 0) of (M, 64) uint8 chunks, M = 2^k."""
-    bits = _bits_of_bytes(chunks)                       # (M, 512)
-    G = jnp.asarray(_chunk_basis_matrix())              # (512, 32)
-    v = jnp.mod(bits @ G, 2.0)                          # (M, 32)
+    v = _gf2_dot(_bits_of_bytes(chunks), _chunk_basis_matrix())  # (M, 32)
     level = 0
     while v.shape[0] > 1:
-        lo = v[0::2]
+        lo = v[0::2]                                    # earlier chunks
         hi = v[1::2]
-        A = jnp.asarray(_level_matrix(level))
-        v = jnp.mod(jnp.mod(lo @ A, 2.0) + hi, 2.0)
+        v = _gf2_dot(lo, _level_matrix(level)) ^ hi
         level += 1
-    vbits = v[0].astype(jnp.uint32)
+    vbits = v[0].astype(jnp.uint32)                     # (32,) 0/1
     return jnp.sum(vbits << jnp.arange(32, dtype=jnp.uint32))
 
 
@@ -156,14 +143,16 @@ def crc32_batch_jax(data: jnp.ndarray, lengths) -> jnp.ndarray:
 
 def _apply_gf2_cols(values: jnp.ndarray, cols: np.ndarray) -> jnp.ndarray:
     """Apply a GF(2) operator (given as 32 column u32s) to (B,) uint32s."""
-    M = np.zeros((32, 32), dtype=np.float32)
-    for j in range(32):
-        for o in range(32):
-            M[j, o] = (int(cols[j]) >> o) & 1
-    bits = ((values[:, None] >> jnp.arange(32, dtype=jnp.uint32)) & 1
-            ).astype(jnp.float32)
-    out = jnp.mod(bits @ jnp.asarray(M), 2.0).astype(jnp.uint32)
+    bits = (values[:, None] >> jnp.arange(32, dtype=jnp.uint32)) & 1
+    out = _gf2_dot(bits, _cols_matrix(cols)).astype(jnp.uint32)
     return jnp.sum(out << jnp.arange(32, dtype=jnp.uint32)[None, :], axis=1)
+
+
+def _cols_matrix(cols) -> np.ndarray:
+    """(32, 32) 0/1 matrix of a GF(2) operator given as 32 column u32s:
+    element [j, o] = bit o of column j."""
+    c = np.asarray(cols, np.uint64)[:, None] >> np.arange(32, dtype=np.uint64)
+    return (c & np.uint64(1)).astype(np.int8)
 
 
 @functools.partial(jax.jit, static_argnames=())
@@ -240,16 +229,9 @@ def crc32_jax(data: jnp.ndarray) -> jnp.ndarray:
 def crc32_combine_jax(crc1: jnp.ndarray, crc2: jnp.ndarray,
                       len2: int) -> jnp.ndarray:
     """Combine two device CRCs; ``len2`` static (shapes are static anyway)."""
-    cols = _shift_operator(len2)
-    M = np.zeros((32, 32), dtype=np.float32)
-    for j in range(32):
-        for o in range(32):
-            M[j, o] = (int(cols[j]) >> o) & 1
-    c1 = crc1.astype(jnp.uint32)
-    bits = ((c1[None] >> jnp.arange(32, dtype=jnp.uint32)) & 1).astype(jnp.float32)
-    shifted = jnp.mod(bits @ jnp.asarray(M), 2.0).astype(jnp.uint32)
-    value = jnp.sum(shifted << jnp.arange(32, dtype=jnp.uint32))
-    return value ^ crc2.astype(jnp.uint32)
+    shifted = _apply_gf2_cols(crc1.astype(jnp.uint32)[None],
+                              _shift_operator(len2))
+    return shifted[0] ^ crc2.astype(jnp.uint32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,15 @@
 """Device (JAX) DEFLATE decoder: batched symbol scan + parallel expansion.
 
-TPU-first decomposition of the reference's decode hot loop
+Data-parallel decomposition of the reference's decode hot loop
 (reference: src/deflate/decode.rs:112-130 + huffman.rs:157-179):
 
 * **Symbol scan** — the bit cursor is inherently serial *within* a
   stream, so throughput comes from decoding MANY independent streams in
   lockstep: one `lax.scan` step decodes one symbol per stream across the
   whole batch (flat-table peek→lookup→consume, branchless selects for
-  literal/length/distance/EOB).  Batch-of-blocks is the TPU analog of
-  the reference's single-stream loop.
-* **LZ77 expansion** — instead of the sequential overlapping-copy
-  (reference: libflate_lz77/src/lib.rs:164-194 rle_decode), every output
-  position gets a *source pointer* (itself for literals, `j - dist` for
-  copies); pointer-doubling resolves all chains in log₂(n) gather
-  rounds, then one gather materializes the bytes.  Overlapping RLE
-  copies are just chains through the same literal.
+  literal/length/distance/EOB).
+* **LZ77 expansion** — ops.device_expand.expand_tokens (pointer
+  jumping over mod-collapsed source pointers).
 
 Tables are built on-device by ops.huffman.decode_table from code lengths
 (header parsing is a host/native concern — headers are ~100 bytes).
@@ -28,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..spec import constants as C
+from .device_expand import expand_tokens
 from .huffman import decode_table
 
 _LEN_BASE = jnp.asarray(C.LENGTH_BASE)
@@ -197,282 +193,6 @@ def decode_symbols(words: jnp.ndarray, start_bit: jnp.ndarray,
     return a, b, n_tokens, end_pos, err
 
 
-@functools.partial(jax.jit, static_argnames=("out_cap", "hist_cap"))
-def expand_tokens_device(a: jnp.ndarray, b: jnp.ndarray,
-                         n_tokens: jnp.ndarray, out_cap: int,
-                         history: jnp.ndarray | None = None,
-                         hist_len: jnp.ndarray | None = None,
-                         hist_cap: int = 0):
-    """Parallel LZ77 expansion: (B, T) tokens → (B, out_cap) bytes.
-
-    ``history`` (B, hist_cap) supplies up to 32 KiB of previously decoded
-    bytes (right-aligned: history[:, hist_cap-hist_len:] is valid) so
-    cross-block back-references resolve (parity: the reference's
-    Lz77Decoder keeps the last 32 KiB — libflate_lz77/src/lib.rs:219-231).
-
-    Returns (out, n_out, err) — err flags distance-exceeds-history and
-    output-overflow conditions per block.
-    """
-    bsz = a.shape[0]
-    if history is None:
-        history = jnp.zeros((bsz, 0), jnp.uint8)
-        hist_len = jnp.zeros((bsz,), jnp.int32)
-        hist_cap = 0
-
-    def one(av, bv, nt, hist, hl):
-        t = av.shape[0]
-        h = hist_cap
-        tidx = jnp.arange(t, dtype=jnp.int32)
-        valid = tidx < nt
-        is_match = valid & (bv > 0)
-        lens = jnp.where(valid, jnp.where(is_match, av, 1), 0)
-        ends = jnp.cumsum(lens)
-        starts = ends - lens
-        n_out = ends[-1] if t else jnp.int32(0)
-        overflow = n_out > out_cap
-
-        # token id per output position: mark starts, inclusive cumsum
-        marks = jnp.zeros((out_cap,), jnp.int32).at[
-            jnp.clip(starts, 0, out_cap - 1)].add(
-            jnp.where(valid, 1, 0))
-        token_id = jnp.clip(jnp.cumsum(marks) - 1, 0, t - 1)
-
-        # work in a combined coordinate space: [0, h) history, [h, ...) new
-        j = jnp.arange(out_cap, dtype=jnp.int32) + h
-        tok_is_match = is_match[token_id]
-        dist = jnp.where(tok_is_match, bv[token_id], 0)
-        bad_dist = tok_is_match & (dist > j - h + hl) & (j - h < n_out)
-        src_new = jnp.where(tok_is_match, j - dist, j)
-        lit_new = jnp.where(tok_is_match, 0, av[token_id]).astype(jnp.uint8)
-
-        if h:
-            # history positions are pre-resolved literal roots
-            src = jnp.concatenate([jnp.arange(h, dtype=jnp.int32), src_new])
-            lit = jnp.concatenate([hist, lit_new])
-        else:
-            src, lit = src_new, lit_new
-        src = jnp.clip(src, 0, h + out_cap - 1)
-
-        # pointer doubling to the literal root; adaptive: most chains
-        # resolve in a few rounds, so stop as soon as p is a fixpoint
-        # everywhere instead of always running the log2 worst case
-        rounds = max(1, (h + out_cap).bit_length())
-
-        def db_cond(state):
-            p, r, changed = state
-            return changed & (r < rounds)
-
-        def db_body(state):
-            p, r, _ = state
-            p2 = p[p]
-            return p2, r + 1, jnp.any(p2 != p)
-
-        p, _, _ = jax.lax.while_loop(
-            db_cond, db_body, (src, jnp.int32(0), jnp.bool_(True)))
-        out = lit[p][h:]
-        err = overflow | jnp.any(bad_dist)
-        return out, jnp.minimum(n_out, out_cap), err
-
-    return jax.vmap(one)(a, b, n_tokens, history, hist_len)
-
-
-# ---------------------------------------------------------------------------
-# Speculative-decode phase B: chain-follow + token compaction
-# ---------------------------------------------------------------------------
-@functools.partial(jax.jit, static_argnames=("chunk",))
-def follow_token_chain(nextL: jnp.ndarray, start: jnp.ndarray,
-                       chunk: int = 512):
-    """Mark true token positions given per-position next pointers.
-
-    nextL: (P,) int32 — for a litlen symbol starting at bit p, the bit
-    position of the next litlen symbol (fixed point at EOB/invalid).
-    start: scalar int32 — first symbol's bit position.
-    Returns (P,) bool marks of the positions on the orbit of ``start``
-    (same chunked pointer-doubling scheme as ops/lz77.greedy_parse_marks,
-    generalized to an arbitrary jump map with fixed points).
-    """
-    p_total = nextL.shape[0]
-    s = chunk
-    n_chunks = p_total // s
-    idx = jnp.arange(p_total, dtype=jnp.int32)
-    jump = jnp.clip(nextL, 0, p_total - 1)
-    chunk_of = idx // s
-
-    g = jump
-    for _ in range(max(1, s.bit_length())):
-        inside = (g // s) == chunk_of
-        # fixed points stay put; others chase until outside the chunk
-        g = jnp.where(inside & (g != idx), g[g], g)
-
-    def chunk_step(pos, t):
-        in_chunk = (pos // s) == t
-        new_pos = jnp.where(in_chunk, g[jnp.clip(pos, 0, p_total - 1)],
-                            pos)
-        return new_pos, pos
-
-    _, entries = jax.lax.scan(chunk_step, start.astype(jnp.int32),
-                              jnp.arange(n_chunks, dtype=jnp.int32))
-
-    jump2d = jump.reshape(n_chunks, s)
-
-    def walk_step(pos, _):
-        t = jnp.arange(n_chunks, dtype=jnp.int32)
-        active = (pos // s) == t
-        local = jnp.clip(pos - t * s, 0, s - 1)
-        nxt = jnp.where(active, jump2d[t, local], pos)
-        return nxt, (active, local)
-
-    _, (marks_steps, locals_steps) = jax.lax.scan(
-        walk_step, entries, None, length=s)
-    flat_mark = marks_steps.reshape(-1)
-    flat_pos = (locals_steps +
-                (jnp.arange(n_chunks, dtype=jnp.int32)[None, :] * s)
-                ).reshape(-1)
-    return jnp.zeros((p_total,), jnp.bool_).at[flat_pos].max(flat_mark)
-
-
-@functools.partial(jax.jit, static_argnames=("chunk",))
-def follow_token_chain_from_exits(nextL: jnp.ndarray, g: jnp.ndarray,
-                                  start: jnp.ndarray, chunk: int = 512):
-    """Chain-follow given precomputed chunk-exit maps ``g`` (from the
-    Pallas chunk_exit_maps kernel) — skips the XLA pointer-doubling
-    that dominates follow_token_chain."""
-    p_total = nextL.shape[0]
-    s = chunk
-    n_chunks = p_total // s
-    jump = jnp.clip(nextL, 0, p_total - 1)
-    g = jnp.clip(g, 0, p_total - 1)
-
-    def chunk_step(pos, t):
-        in_chunk = (pos // s) == t
-        new_pos = jnp.where(in_chunk, g[jnp.clip(pos, 0, p_total - 1)],
-                            pos)
-        return new_pos, pos
-
-    _, entries = jax.lax.scan(chunk_step, start.astype(jnp.int32),
-                              jnp.arange(n_chunks, dtype=jnp.int32))
-
-    jump2d = jump.reshape(n_chunks, s)
-
-    def walk_step(pos, _):
-        t = jnp.arange(n_chunks, dtype=jnp.int32)
-        active = (pos // s) == t
-        local = jnp.clip(pos - t * s, 0, s - 1)
-        nxt = jnp.where(active, jump2d[t, local], pos)
-        return nxt, (active, local)
-
-    _, (marks_steps, locals_steps) = jax.lax.scan(
-        walk_step, entries, None, length=s)
-    flat_mark = marks_steps.reshape(-1)
-    flat_pos = (locals_steps +
-                (jnp.arange(n_chunks, dtype=jnp.int32)[None, :] * s)
-                ).reshape(-1)
-    return jnp.zeros((p_total,), jnp.bool_).at[flat_pos].max(flat_mark)
-
-
-@functools.partial(jax.jit, static_argnames=("chunk",))
-def chain_entries(g: jnp.ndarray, start: jnp.ndarray,
-                  chunk: int = 512) -> jnp.ndarray:
-    """Orbit position at each chunk start, from chunk-exit maps ``g``.
-
-    Returns (n_chunks,) int32 — the input to the walk-emit kernel.
-    """
-    p_total = g.shape[0]
-    s = chunk
-    n_chunks = p_total // s
-    g = jnp.clip(g, 0, p_total - 1)
-
-    def chunk_step(pos, t):
-        in_chunk = (pos // s) == t
-        new_pos = jnp.where(in_chunk, g[jnp.clip(pos, 0, p_total - 1)],
-                            pos)
-        return new_pos, pos
-
-    _, entries = jax.lax.scan(chunk_step, start.astype(jnp.int32),
-                              jnp.arange(n_chunks, dtype=jnp.int32))
-    return entries
-
-
-@functools.partial(jax.jit, static_argnames=("max_tokens",))
-def tokens_from_emit_packed(emit: jnp.ndarray, max_tokens: int):
-    """Like tokens_from_emit but keeps tokens PACKED (a | b<<9, 25 bits)
-    — one compaction scatter and half the device→host traffic; the
-    native expander unpacks on the fly."""
-    from .pallas_decode import BAD_FLAG, EMIT_ROWS, EOB_FLAG, LANES, \
-        MAX_EMIT
-    rows = emit.shape[0]
-    n_chunks = rows // EMIT_ROWS
-    blocks = emit.reshape(n_chunks, EMIT_ROWS, LANES)
-    tok_rows = blocks[:, :MAX_EMIT, :].reshape(n_chunks * MAX_EMIT, LANES)
-    overflow = jnp.any(blocks[:, MAX_EMIT, :] == -1, axis=0)
-    valid = tok_rows != -1
-    tok_s = jnp.transpose(tok_rows)
-    valid_s = jnp.transpose(valid)
-
-    def one(tok, marks):
-        is_tok = marks & ((tok & (EOB_FLAG | BAD_FLAG)) == 0)
-        err = jnp.any(marks & ((tok & BAD_FLAG) != 0))
-        reached_eob = jnp.any(marks & ((tok & EOB_FLAG) != 0))
-        rank = jnp.cumsum(is_tok.astype(jnp.int32)) - 1
-        n_tokens = jnp.sum(is_tok.astype(jnp.int32))
-        packed = jnp.zeros((max_tokens,), jnp.int32).at[
-            jnp.clip(rank, 0, max_tokens - 1)].add(
-            jnp.where(is_tok, tok & 0x1FFFFFF, 0))
-        return packed, n_tokens, err | ~reached_eob
-
-    packed, nt, err = jax.vmap(one)(tok_s, valid_s)
-    return packed, nt, err | overflow
-
-
-@functools.partial(jax.jit, static_argnames=("max_tokens",))
-def tokens_from_emit(emit: jnp.ndarray, max_tokens: int):
-    """Stitch walk-emit kernel output into dense per-stream tokens.
-
-    emit: (n_chunks * EMIT_ROWS, 128) int32 for one group.
-    Returns (a (S, max_tokens), b, n_tokens (S,), err (S,)).
-    err includes per-chunk overflow (flag row == -1).
-    """
-    from .pallas_decode import EMIT_ROWS, LANES, MAX_EMIT
-    rows = emit.shape[0]
-    n_chunks = rows // EMIT_ROWS
-    blocks = emit.reshape(n_chunks, EMIT_ROWS, LANES)
-    tok_rows = blocks[:, :MAX_EMIT, :].reshape(n_chunks * MAX_EMIT, LANES)
-    overflow = jnp.any(blocks[:, MAX_EMIT, :] == -1, axis=0)   # (S,)
-    valid = tok_rows != -1
-    tok_s = jnp.transpose(tok_rows)                            # (S, N)
-    valid_s = jnp.transpose(valid)
-
-    a, b, nt, err = jax.vmap(
-        lambda t, m: compact_marked_tokens(t, m, max_tokens))(
-        tok_s, valid_s)
-    return a, b, nt, err | overflow
-
-
-@functools.partial(jax.jit, static_argnames=("max_tokens",))
-def compact_marked_tokens(tok: jnp.ndarray, marks: jnp.ndarray,
-                          max_tokens: int):
-    """(P,) packed tokens + marks → dense (a, b, n_tokens, err).
-
-    Token packing per ops/pallas_decode: a | b<<9 | eob<<25 | bad<<26.
-    The EOB position is marked by the chain but is not a token.
-    """
-    from .pallas_decode import BAD_FLAG, EOB_FLAG
-    is_tok = marks & ((tok & (EOB_FLAG | BAD_FLAG)) == 0)
-    err = jnp.any(marks & ((tok & BAD_FLAG) != 0))
-    reached_eob = jnp.any(marks & ((tok & EOB_FLAG) != 0))
-    rank = jnp.cumsum(is_tok.astype(jnp.int32)) - 1
-    n_tokens = jnp.sum(is_tok.astype(jnp.int32))
-    a_src = tok & 0x1FF
-    b_src = (tok >> 9) & 0xFFFF
-    a = jnp.zeros((max_tokens,), jnp.int32).at[
-        jnp.clip(rank, 0, max_tokens - 1)].add(
-        jnp.where(is_tok, a_src, 0))
-    b = jnp.zeros((max_tokens,), jnp.int32).at[
-        jnp.clip(rank, 0, max_tokens - 1)].add(
-        jnp.where(is_tok, b_src, 0))
-    return a, b, n_tokens, err | ~reached_eob
-
-
 # ---------------------------------------------------------------------------
 # Table construction from code lengths (device)
 # ---------------------------------------------------------------------------
@@ -568,9 +288,9 @@ def inflate_device(data: bytes, out_cap: int | None = None):
                     if int(nt[0]) >= max_tokens - 1 and cap < 8 * len(data):
                         continue
                     raise DeflateError("invalid Huffman code in stream")
-                chunk, n_out, xerr = expand_tokens_device(
+                chunk, n_out, xerr = expand_tokens(
                     a, b, nt, cap, jnp.asarray(hist),
-                    jnp.asarray([len(tail)], jnp.int32), hist_cap)
+                    jnp.asarray([len(tail)], jnp.int32))
                 if not bool(xerr[0]):
                     break
                 # distinguish overflow (token sizes sum past cap) from a

@@ -1,6 +1,6 @@
 """Device (JAX) DEFLATE block encoder: tokens → packed bit stream.
 
-The TPU encode pipeline for one block (vmap over blocks):
+The device encode pipeline for one block (vmap over blocks):
 
     token arrays (a, b)          [b == 0 ⇒ literal a; else length-a/dist-b]
       → symbol histograms        (scatter-add)
@@ -73,8 +73,7 @@ def token_histograms_jax(a: jnp.ndarray, b: jnp.ndarray,
 @jax.jit
 def token_histograms_masked(a: jnp.ndarray, b: jnp.ndarray,
                             valid: jnp.ndarray):
-    """Histograms over an explicit valid-slot mask (padded token arrays
-    from the Pallas parse emit holes in stream order — ops/pallas_parse)."""
+    """Histograms over an explicit valid-slot mask."""
     lit_sym, dist_sym, is_match = token_symbols(a, b, valid)
     lit_freq = jnp.zeros((N_LIT,), jnp.int32).at[
         jnp.where(valid, lit_sym, N_LIT - 1)].add(
@@ -112,8 +111,8 @@ def rle_code_lengths_jax(seq: jnp.ndarray):
     new_run = jnp.concatenate([jnp.ones((1,), jnp.bool_),
                                seq[1:] != seq[:-1]])
     # start index of each position's run via running max of start marks
-    # (lax.cummax is a primitive — associative_scan's sliced log-depth
-    # graph costs ~45 s of XLA TPU compile time for no runtime benefit)
+    # (lax.cummax is a primitive; associative_scan would build a sliced
+    # log-depth graph that is slow to compile)
     start_idx = jax.lax.cummax(jnp.where(new_run, idx, 0))
     k = idx - start_idx                                   # offset in run
     # run length: scatter-count by start index, gathered back
@@ -178,8 +177,8 @@ def rle_code_lengths_jax(seq: jnp.ndarray):
 def token_fields_xla(a: jnp.ndarray, b: jnp.ndarray, valid: jnp.ndarray,
                      lit_rev: jnp.ndarray, lit_w: jnp.ndarray,
                      dist_rev: jnp.ndarray, dist_w: jnp.ndarray):
-    """XLA token-field computation (one block): the gather-based
-    counterpart of pallas_fields.token_fields_pallas.
+    """Token fields of one block from the encoder tables (gathers from
+    small tables, fused by XLA).
 
     Returns (f1v, f1w, f2v, f2w) each (M,) int32.
     """
@@ -317,11 +316,7 @@ def encode_block_fields(a: jnp.ndarray, b: jnp.ndarray,
 
 def encode_block(a: jnp.ndarray, b: jnp.ndarray, n_tokens: jnp.ndarray,
                  bfinal: jnp.ndarray, block_type: str = "dynamic"):
-    """Encode one block: returns (words (W,) uint32, total_bits).
-
-    Two jit stages on purpose — see ops/pipeline._encode_batch for the
-    XLA compile-time rationale.
-    """
+    """Encode one block: returns (words (W,) uint32, total_bits)."""
     values, widths = encode_block_fields(a, b, n_tokens, bfinal, block_type)
     return pack_fields(values, widths)
 

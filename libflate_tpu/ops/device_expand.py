@@ -1,28 +1,21 @@
-"""Device-resident LZ77 expansion — the decode chain's second half.
+"""Device-resident LZ77 expansion: tokens -> plaintext, plain XLA.
 
-Replaces ops.deflate_decode.expand_tokens_device (generic XLA pointer
-doubling, ~1.16 s per 8 MiB: every gather rides XLA's ~85 M elem/s
-ceiling and RLE runs make chains thousands deep) with a TPU-first
-decomposition (reference hot loop being replaced:
-src/deflate/decode.rs:112-130 + libflate_lz77/src/lib.rs:164-194):
+The reference expands with a sequential overlapping copy
+(libflate_lz77/src/lib.rs:164-194).  Here every output position gets a
+source pointer and the pointers are resolved in parallel:
 
-1. **Fused token-id rank + field gather** — output position -> covering
-   token id via coarse per-128-bucket counts (cheap fused XLA one-hots)
-   plus an in-kernel binary-search fine rank, fused with the token
-   field gather in ONE Pallas pass (ops/pallas_rank.rank_gather_fields).
-2. **Mod-collapse** — a byte inside an overlapped (RLE) copy jumps
-   straight to the PRE-TOKEN source: src(p) = (p - s) % d + s - d.
-   Every chain step then crosses a token boundary, so chain depth drops
-   from output-run length (thousands) to the token DAG depth (~10-200
-   on text; measured mean 9-36).
-3. **Fused chase + materialize** — ONE Pallas kernel pass
-   (ops/pallas_expand.resolve_bytes) walks 4 KiB superblocks in order:
-   a far fetch serves sources in earlier superblocks from a
-   precomputed hit-row list (SMEM), then in-register doubling resolves
-   intra-block chains and sibling selects cover the same superblock;
-   resolved bytes store sublane-packed (4 per int32).
+1. **Covering token** — scatter each token's id at its output start,
+   then a running max gives every position its token.
+2. **Mod-collapse** — a byte inside an overlapped (RLE) copy points
+   straight at the PRE-TOKEN source: src(p) = s - d + (p - s) mod d
+   for a match of distance d starting at s.  Every pointer then
+   crosses a token boundary backwards, so chain depth is the token
+   DAG depth (tens to hundreds on text), not the run length.
+3. **Pointer jumping** — ``src = src[src]`` until nothing changes:
+   log2(chain depth) rounds of one gather each; literals are roots.
 
-Members are independent (PGZF container) — no cross-member history.
+Members are independent (PGZF container) unless a ``history`` row
+supplies earlier output (raw DEFLATE blocks, ops.deflate_decode).
 """
 from __future__ import annotations
 
@@ -32,55 +25,91 @@ import jax
 import jax.numpy as jnp
 
 
-@functools.partial(jax.jit, static_argnames=("out_cap",))
-def expand_members(packed: jnp.ndarray, n_tokens: jnp.ndarray,
-                   out_cap: int):
-    """Expand packed LZ77 tokens into plaintext, fully on device.
-
-    Args:
-        packed: (B, T) int32 tokens ``a | (b << 9)`` (a = literal byte
-            or match length; b = distance, 0 for literals) — the sync
-            kernel / native packing.
-        n_tokens: (B,) int32 valid token counts.
-        out_cap: static output capacity per member (multiple of 1024).
-
-    Returns:
-        (out (B, out_cap) uint8, n_out (B,) int32, err (B,) bool).
-        err: bad distance (reaches before the member) or output
-        overflow.
-    """
-    from .pallas_expand import resolve_bytes
-
-    bsz, t = packed.shape
-    a = packed & 511
-    b = (packed >> 9) & 0xFFFF
+def _expand_row(a, b, nt, hist, hl, out_cap: int):
+    t = a.shape[0]
+    h = hist.shape[0]
     tidx = jnp.arange(t, dtype=jnp.int32)
-    valid = tidx[None, :] < n_tokens[:, None]
+    valid = tidx < nt
     is_match = valid & (b > 0)
     lens = jnp.where(valid, jnp.where(is_match, a, 1), 0)
-    ends = jnp.cumsum(lens, axis=1)
+    ends = jnp.cumsum(lens)
     starts = ends - lens
-    n_out = ends[:, -1]
-    overflow = n_out > out_cap
-    # bad distance = a match reaching before its member's start; a
-    # token-level (B, T) reduce — the per-position check this replaces
-    # scanned the full (B, out_cap) src array
-    bad_dist = jnp.any(is_match & (starts < b), axis=1)
+    n_out = ends[-1]
+    # a match may reach back into the history but not before it
+    err = (n_out > out_cap) | jnp.any(is_match & (b > starts + hl))
 
-    # fused rank + field gather + mod-collapse: output position ->
-    # covering token -> chase-ready (src, lit) in ONE kernel pass
-    # (ops/pallas_rank emit="src"; replaces the XLA bucket-rank build +
-    # gather_two + the 8M-element mod/mask tail)
-    pk = jnp.where(valid, jnp.where(is_match, packed, a), 0)
-    from .pallas_rank import rank_emit_src
-    src, litvals = rank_emit_src(
-        jnp.minimum(starts, out_cap - 1), pk, valid,
-        jnp.minimum(n_out, out_cap), out_cap)
+    marks = jnp.zeros((out_cap,), jnp.int32).at[
+        jnp.where(valid & (lens > 0), starts, out_cap)].max(
+        tidx, mode="drop")
+    tok = jax.lax.cummax(marks)
+    j = jnp.arange(out_cap, dtype=jnp.int32)
+    s = starts[tok]
+    d = jnp.maximum(b[tok], 1)
+    copy = is_match[tok] & (j < n_out)
+    src = jnp.where(copy, s - d + (j - s) % d, j) + h
+    lit = jnp.where(copy | (j >= n_out), 0, a[tok]).astype(jnp.uint8)
 
-    # fused chase + materialize: one sequential-block kernel pass
-    # (ops/pallas_expand) replaces the two-level doubling rounds and
-    # the final materialize gather; padding positions are fixpoints
-    # with lit 0, so no post-mask is needed
-    out = resolve_bytes(src, litvals).astype(jnp.uint8)
-    err = overflow | bad_dist
-    return out, jnp.minimum(n_out, out_cap), err
+    # combined coordinates: [0, h) history roots, [h, h + out_cap) new
+    src = jnp.clip(jnp.concatenate([jnp.arange(h, dtype=jnp.int32), src]),
+                   0, h + out_cap - 1)
+    lit = jnp.concatenate([hist.astype(jnp.uint8), lit])
+    return resolve_bytes(src, lit)[h:], jnp.minimum(n_out, out_cap), err
+
+
+def resolve_bytes(src: jnp.ndarray, lit: jnp.ndarray) -> jnp.ndarray:
+    """Pointer jumping: ``lit`` at the root of every position's chain.
+
+    src: (n,) int32 source pointers, each either a root (src[p] == p)
+    or pointing at an earlier position; lit: (n,) root values.  Every
+    round halves the remaining chain length: ``src = src[src]`` until
+    nothing changes.
+    """
+    def cond(state):
+        return state[1]
+
+    def body(state):
+        p, _ = state
+        p2 = p[p]
+        return p2, jnp.any(p2 != p)
+
+    p, _ = jax.lax.while_loop(cond, body, (src, jnp.bool_(True)))
+    return lit[p]
+
+
+@functools.partial(jax.jit, static_argnames=("out_cap",))
+def expand_tokens(a: jnp.ndarray, b: jnp.ndarray, n_tokens: jnp.ndarray,
+                  out_cap: int, history: jnp.ndarray | None = None,
+                  hist_len: jnp.ndarray | None = None):
+    """Parallel LZ77 expansion: (B, T) tokens -> (B, out_cap) bytes.
+
+    Args:
+        a, b: (B, T) int32 token fields (b == 0: literal byte a; else a
+            match of length a at distance b).
+        n_tokens: (B,) int32 valid token counts.
+        out_cap: static output capacity per row.
+        history: optional (B, H) uint8 earlier output, right-aligned
+            (``history[:, H - hist_len:]`` is valid), that matches may
+            reach into (parity: the reference's Lz77Decoder keeps the
+            last 32 KiB — libflate_lz77/src/lib.rs:219-231).
+
+    Returns:
+        (out (B, out_cap) uint8, n_out (B,) int32, err (B,) bool); err
+        flags a distance reaching before the available history and
+        output overflow.  Bytes past n_out are zero.
+    """
+    bsz = a.shape[0]
+    if history is None:
+        history = jnp.zeros((bsz, 0), jnp.uint8)
+        hist_len = jnp.zeros((bsz,), jnp.int32)
+    return jax.vmap(lambda aa, bb, nt, hh, hl: _expand_row(
+        aa, bb, nt, hh, hl, out_cap))(
+        a.astype(jnp.int32), b.astype(jnp.int32), n_tokens, history,
+        hist_len)
+
+
+def expand_members(packed: jnp.ndarray, n_tokens: jnp.ndarray,
+                   out_cap: int):
+    """``expand_tokens`` on packed tokens ``a | (b << 9)`` (the sync
+    decoder's and the native engine's packing)."""
+    return expand_tokens(packed & 511, (packed >> 9) & 0xFFFF, n_tokens,
+                         out_cap)

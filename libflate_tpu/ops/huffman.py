@@ -1,6 +1,6 @@
 """Device (JAX) Huffman machinery: package-merge, canonical codes, tables.
 
-TPU-first redesign of the reference's heap/Vec algorithms (reference:
+Data-parallel redesign of the reference's heap/Vec algorithms (reference:
 src/huffman.rs):
 
 * :func:`package_merge_lengths` — optimal length-limited code lengths as

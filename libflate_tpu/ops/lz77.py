@@ -1,21 +1,14 @@
-"""Device (JAX) LZ77 match finding — block-parallel, branchless.
+"""Device (JAX) LZ77 match lengths and greedy parse — branchless.
 
-TPU-first redesign of the reference's sequential hash-table scan
-(reference: libflate_lz77/src/default.rs:60-129).  The reference walks
-bytes left-to-right, probing/updating a mutable single-slot prefix table.
-That serial dependency is decomposed into three data-parallel stages:
+Data-parallel redesign of the reference's sequential hash-table scan
+(reference: libflate_lz77/src/default.rs:60-129).  Candidates come from
+ops/sort_match; this module turns them into tokens:
 
-1. **Candidates** — for every position, the most recent earlier position
-   with the same 3-byte prefix.  A stable sort over the exact 24-bit
-   prefix groups equal keys with positions ascending; the predecessor in
-   each run *is* the reference's single-slot table answer (every earlier
-   position is inserted in the reference too, so the choice functions
-   coincide → comparable compressed sizes).
-2. **Match lengths** — vectorized LCP: compare 4-byte words, find the
+1. **Match lengths** — vectorized LCP: compare 4-byte words, find the
    first differing byte from the XOR, iterate only while any lane is
-   still extending (`lax.while_loop`).  Exact after clipping to the
-   block end.
-3. **Greedy parse** — the "skip by match length" recurrence is the only
+   still extending (`lax.while_loop`) over a compacted survivor set.
+   Exact after clipping to the block end.
+2. **Greedy parse** — the "skip by match length" recurrence is the only
    left-to-right dependency.  It is solved hierarchically: positions are
    grouped into chunks of ``PARSE_CHUNK`` ≥ 258 (a jump can never skip a
    whole chunk); pointer-doubling computes every position's *chunk-exit*
@@ -38,36 +31,7 @@ PARSE_CHUNK = 512          # ≥ MAX_MATCH so a jump crosses ≤ 1 boundary
 
 
 # ---------------------------------------------------------------------------
-# Stage 1: candidates
-# ---------------------------------------------------------------------------
-def prefix_candidates(data: jnp.ndarray, window: int = C.MAX_DISTANCE
-                      ) -> jnp.ndarray:
-    """(n,) uint8 → (n,) int32: previous position with equal 3-byte key,
-    -1 if none within ``window``."""
-    n = data.shape[0]
-    d = data.astype(jnp.int32)
-    pad = jnp.zeros((2,), jnp.int32)
-    d1 = jnp.concatenate([d[1:], pad[:1]])
-    d2 = jnp.concatenate([d[2:], pad])
-    key = (d << 16) | (d1 << 8) | d2
-    idx = jnp.arange(n, dtype=jnp.int32)
-    # positions without a full 3-byte prefix get unique sentinel keys
-    key = jnp.where(idx >= n - 2, (1 << 24) + idx, key)
-
-    order = jnp.argsort(key, stable=True)           # ties: position asc
-    key_sorted = key[order]
-    prev_sorted = jnp.concatenate([jnp.full((1,), -1, jnp.int32),
-                                   order[:-1]])
-    same = jnp.concatenate([jnp.zeros((1,), jnp.bool_),
-                            key_sorted[1:] == key_sorted[:-1]])
-    cand_sorted = jnp.where(same, prev_sorted, -1)
-    cand = jnp.zeros((n,), jnp.int32).at[order].set(cand_sorted)
-    cand = jnp.where((cand >= 0) & (idx - cand <= window), cand, -1)
-    return cand
-
-
-# ---------------------------------------------------------------------------
-# Stage 2: match lengths
+# Match lengths
 # ---------------------------------------------------------------------------
 def _words4(data: jnp.ndarray) -> jnp.ndarray:
     """Unaligned 4-byte little-endian word starting at each position."""
@@ -81,14 +45,20 @@ def _words4(data: jnp.ndarray) -> jnp.ndarray:
 
 def match_lengths(data: jnp.ndarray, cand: jnp.ndarray,
                   max_match: int = C.MAX_MATCH,
-                  max_rounds: int | None = None) -> jnp.ndarray:
+                  max_rounds: int | None = None,
+                  known: jnp.ndarray | None = None,
+                  known_cap: int = 0) -> jnp.ndarray:
     """Exact LCP between each position and its candidate, clipped to the
     block end and ``max_match``.  0 where cand < 0.
 
     ``max_rounds`` bounds the 4-byte extension rounds (matches cap at
     ~4*max_rounds bytes): one straggler position extending to 258
     otherwise drags every lane through 65 gather rounds.  Truncated
-    lengths are still valid DEFLATE matches — pure ratio/time trade."""
+    lengths are still valid DEFLATE matches — pure ratio/time trade.
+
+    ``known``: exact shared lengths already known up to ``known_cap``
+    bytes (a multiple of 4; the sort matcher's), so only positions with
+    ``known == known_cap`` extend, from there."""
     n = data.shape[0]
     w4 = _words4(data)
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -106,12 +76,19 @@ def match_lengths(data: jnp.ndarray, cand: jnp.ndarray,
         ln = jnp.minimum(ln + jnp.where(active, tz, 0), lim)
         return ln, active & full & (ln < lim)
 
-    # dense phase: 3 rounds (12 bytes) cover the overwhelming majority
-    # of matches; each round is 2 full-array gathers
-    ln = jnp.zeros((n,), jnp.int32)
-    active = cand >= 0
-    for _ in range(3):
-        ln, active = extend(ln, active, idx, cand, limit)
+    if known is None:
+        # dense phase: 3 rounds (12 bytes) cover the overwhelming
+        # majority of matches; each round is 2 full-array gathers
+        done = 3
+        ln = jnp.zeros((n,), jnp.int32)
+        active = cand >= 0
+        for _ in range(done):
+            ln, active = extend(ln, active, idx, cand, limit)
+    else:
+        done = known_cap // 4
+        ln = jnp.where(cand >= 0, jnp.minimum(known, limit), 0)
+        active = (cand >= 0) & (known >= known_cap) & (ln < limit)
+    budget = 64 if max_rounds is None else max_rounds - done
 
     # sparse phase: survivors (long matches, typically a few % of
     # positions) are compacted so the remaining rounds gather only
@@ -130,10 +107,7 @@ def match_lengths(data: jnp.ndarray, cand: jnp.ndarray,
 
     def cond(state):
         _, act, rounds = state
-        alive = jnp.any(act)
-        if max_rounds is not None:
-            alive &= rounds < max_rounds - 3
-        return alive & (rounds < 64)
+        return jnp.any(act) & (rounds < budget)
 
     def body(state):
         sl, act, rounds = state
@@ -149,25 +123,18 @@ def match_lengths(data: jnp.ndarray, cand: jnp.ndarray,
     # data, so the while exits after one predicate evaluation
     overflow = active & (rank >= cap)
 
-    def cond2(state):
-        _, act, rounds = state
-        alive = jnp.any(act)
-        if max_rounds is not None:
-            alive &= rounds < max_rounds - 3
-        return alive & (rounds < 64)
-
     def body2(state):
         l2, act, rounds = state
         l2, act = extend(l2, act, idx, cand, limit)
         return l2, act, rounds + 1
 
-    ln, _, _ = jax.lax.while_loop(cond2, body2,
+    ln, _, _ = jax.lax.while_loop(cond, body2,
                                   (ln, overflow, jnp.int32(0)))
     return jnp.where(cand >= 0, jnp.minimum(ln, limit), 0)
 
 
 # ---------------------------------------------------------------------------
-# Stage 3: greedy parse
+# Greedy parse
 # ---------------------------------------------------------------------------
 @functools.partial(jax.jit, static_argnames=("min_match",))
 def greedy_parse_marks(lengths: jnp.ndarray, min_match: int = C.MIN_MATCH
@@ -249,53 +216,13 @@ def greedy_parse_marks(lengths: jnp.ndarray, min_match: int = C.MIN_MATCH
     return starts[:n]
 
 
-@functools.partial(jax.jit, static_argnames=("max_tokens", "window",
-                                             "max_match"))
-def tokenize_block(data: jnp.ndarray, n_valid: jnp.ndarray,
-                   max_tokens: int, window: int = C.MAX_DISTANCE,
-                   max_match: int = C.MAX_MATCH):
-    """Full device tokenizer for one block.
-
-    Args:
-        data: (n,) uint8, zero-padded past ``n_valid``.
-        n_valid: scalar int32 — true byte count.
-        max_tokens: static output capacity (≥ n).
-
-    Returns:
-        (a, b, n_tokens): token arrays (max_tokens,) int32 + count.
-    """
-    cand = prefix_candidates(data, window)
-    return tokenize_block_from_cand(data, n_valid, max_tokens, cand,
-                                    max_match)
-
-
-@functools.partial(jax.jit, static_argnames=("max_tokens", "max_match",
-                                             "max_rounds"))
-def tokenize_block_from_cand(data: jnp.ndarray, n_valid: jnp.ndarray,
-                             max_tokens: int, cand: jnp.ndarray,
-                             max_match: int = C.MAX_MATCH,
-                             max_rounds: int | None = None):
-    """Tokenizer tail given precomputed candidates (sort- or
-    hash-kernel-sourced — see ops.pallas_lz77)."""
+def parse_tokens(data: jnp.ndarray, n_valid: jnp.ndarray,
+                 cand: jnp.ndarray, lengths: jnp.ndarray,
+                 max_tokens: int):
+    """Greedy parse + compaction: (n,) candidates and match lengths
+    (0 where no match) -> (a, b, n_tokens) token arrays."""
     n = data.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
-    # forbid matches that start in or reach past the valid region only
-    cand = jnp.where(idx < n_valid, cand, -1)
-    lengths = match_lengths(data, cand, max_match, max_rounds)
-    # dist-1 (RLE) matches are exact by arithmetic, independent of the
-    # round cap — keeps this fallback token-identical to the kernel
-    # path (ops/pipeline._lengths_stage applies the same rule)
-    neq = jnp.concatenate(
-        [data[1:] != data[:-1], jnp.ones((1,), jnp.bool_)])
-    first_neq = jax.lax.associative_scan(
-        jnp.minimum, jnp.where(neq, idx, n), reverse=True)
-    rle_len = jnp.clip(first_neq + 1 - idx, 0, max_match)
-    is_rle = (cand == idx - 1) & jnp.concatenate(
-        [jnp.zeros((1,), jnp.bool_), ~neq[:-1]])
-    lengths = jnp.where(is_rle, jnp.maximum(lengths, rle_len), lengths)
-    lengths = jnp.minimum(lengths, jnp.maximum(n_valid - idx, 0))
-    lengths = jnp.where(lengths >= C.MIN_MATCH, lengths, 0)
-
     starts = greedy_parse_marks(lengths)
     starts = starts & (idx < n_valid)
 

@@ -1,29 +1,21 @@
 """Sort-based LZ77 candidate finder — content-ordered back-scan.
 
-Sort every position by its big-endian 4-byte prefix word (ties by
-position) with the Pallas bitonic kernel (ops/pallas_sort); a
-position's best candidates are then its IMMEDIATELY PRECEDING sorted
-neighbors: among equal prefixes they are exactly the zlib hash chain
-(nearest previous occurrence first), across a prefix boundary they are
-the longest-shared-prefix predecessors, and the shared-prefix length
-falls out of key XORs with no data gather at all.  The sort CARRIES the
-next two prefix words (w4[p+4], w4[p+8]) as extra payloads, so the
-back-scan scores candidates by their EXACT shared length up to 12
-bytes — the LCP kernel then only extends the rare >= 12 survivors
-(~10% of matched positions on the bench corpus, 88% of them within
-8 KiB), letting it start at round 3 over a narrow window.  A second
-bitonic pass (key = position, payload = m) restores text order.
+Sort every position by its big-endian 4-byte prefix word, ties by
+position (``lax.sort`` with two keys); a position's best candidates are
+then its IMMEDIATELY PRECEDING sorted neighbors: among equal prefixes
+they are exactly the zlib hash chain (nearest previous occurrence
+first), across a prefix boundary they are the longest-shared-prefix
+predecessors, and the shared-prefix length falls out of key XORs.  The
+next prefix words (w4[p+4], w4[p+8], ...) are gathered in sorted order,
+so the back-scan scores candidates by their EXACT shared length up to
+``m_exact`` bytes.  A scatter by position restores text order.
 
-vs the round-3 per-lane hash kernel (ops/pallas_lz77): no bucket
-collisions (exact prefix grouping), K chain candidates for the price
-of K static shifted compares instead of K gather+LCP passes, and no
-insert sweep (whose cost was buckets x positions — the encode
-pipeline's single largest term at ~26 ms / 8 MiB).
+This is the device encoder's one matcher on every backend.
 
 Parity note: replaces the reference's single-slot prefix table
 (libflate_lz77/src/default.rs:69-129); candidate quality is a superset
 (its table keeps one entry per 3-byte hash, this keeps every
-occurrence in prefix order, scored by 12-byte shared length).
+occurrence in prefix order, scored by shared length).
 """
 from __future__ import annotations
 
@@ -32,22 +24,31 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from .pallas_sort import sort_pairs, sort_scan_candidates
-
 #: sorted neighbors examined per position (the effective chain depth)
 SCAN_K = 8
-#: exact shared-length bound from the carried prefix words; each +4
-#: beyond 12 carries one more word through the sort (+~1.8 ms / 8 MiB)
-#: and lets the LCP kernel start that much later — at 16 the encode
-#: default SKIPS the LCP kernel entirely (lengths cap at 16; ratio
-#: 0.3207 vs 0.3150 uncapped on the bench corpus, vs the reference
-#: greedy class's 0.3290)
+#: exact shared-length bound from the carried prefix words.  The
+#: encoder's default lengths are these exact values (matches cap at 16
+#: bytes, dist-1 runs aside); EncodeOptions.lcp_rounds extends them.
 M_EXACT = 16
 
 
 def _w4be(dd: jnp.ndarray, o: int, n: int) -> jnp.ndarray:
     return ((dd[:, o:o + n] << 24) | (dd[:, o + 1:o + n + 1] << 16)
             | (dd[:, o + 2:o + n + 2] << 8) | dd[:, o + 3:o + n + 3])
+
+
+def _lead_bytes(x: jnp.ndarray) -> jnp.ndarray:
+    """Equal leading bytes of two big-endian words, given their XOR."""
+    return jnp.where(
+        x == 0, 4,
+        jnp.where(x >= 0x1000000, 0,
+                  jnp.where(x >= 0x10000, 1, jnp.where(x >= 0x100, 2, 3))))
+
+
+def _shift(x: jnp.ndarray, k: int, fill) -> jnp.ndarray:
+    """x[:, i - k] along axis 1, ``fill`` for i < k."""
+    pad = jnp.full((x.shape[0], k), fill, x.dtype)
+    return jnp.concatenate([pad, x[:, :-k]], axis=1)
 
 
 @functools.partial(jax.jit,
@@ -60,47 +61,48 @@ def sort_candidates(blocks: jnp.ndarray, window: int = 32768,
     (exact shared-prefix length up to ``m_exact``) major, nearness
     minor; -1 if none shares >= 3 bytes.
     m[p]: the EXACT shared-prefix length with cand, clipped to
-    ``m_exact`` — a value == m_exact may extend further (the LCP
-    kernel's job, rounds >= m_exact // 4).
+    ``m_exact`` (0 where cand is -1).  Bytes past the row end count as
+    zeros, so claims in the last ``m_exact`` bytes can exceed the true
+    length; callers clip lengths to the valid region.
     """
+    if m_exact % 4 or not 4 <= m_exact <= 24:
+        raise ValueError(f"m_exact must be a multiple of 4 in [4, 24], "
+                         f"got {m_exact}")
     bsz, n = blocks.shape
-    n_pad = 1 << (n - 1).bit_length()
-    assert n_pad <= 1 << 16, "unsort packing holds 16-bit positions"
-    assert m_exact % 4 == 0 and 12 <= m_exact <= 24
-
     d = blocks.astype(jnp.uint32)
-    pad = jnp.zeros((bsz, m_exact + 7), jnp.uint32)
-    dd = jnp.concatenate([d, pad], axis=1)
-    w4be = _w4be(dd, 0, n)
-    key = (w4be ^ jnp.uint32(0x80000000)).astype(jnp.int32)
-    # carried words w4[p+4], w4[p+8], ... up to the exact bound
-    ws = [_w4be(dd, o, n).astype(jnp.int32)
-          for o in range(4, m_exact, 4)]
-    if n_pad != n:  # padding sorts last and is filtered by dist > 0
-        key = jnp.pad(key, ((0, 0), (0, n_pad - n)),
-                      constant_values=jnp.int32(2 ** 31 - 1))
-        ws = [jnp.pad(w, ((0, 0), (0, n_pad - n))) for w in ws]
-    pos = jnp.broadcast_to(jnp.arange(n_pad, dtype=jnp.int32)[None, :],
-                           (bsz, n_pad))
+    dd = jnp.concatenate([d, jnp.zeros((bsz, m_exact + 7), jnp.uint32)],
+                         axis=1)
+    pos = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32)[None, :],
+                           (bsz, n))
+    key, spos = jax.lax.sort((_w4be(dd, 0, n), pos), dimension=1,
+                             num_keys=2)
+    words = [jnp.take_along_axis(_w4be(dd, o, n), spos, axis=1)
+             for o in range(4, m_exact, 4)]
 
-    # fused sort + sorted back-scan: the bitonic network and the
-    # k = 1..scan_k predecessor scoring run in ONE kernel (sorted
-    # payloads stay in VMEM scratch); out come the packed unsort key
-    # pos(16) | m4+ flag(1) | dist-1(15) — half the bitonic key
-    # movement of unsorting (cand, m) pairs — and the exact shared
-    # length m.  The all-ones dist field with a clear flag is the
-    # no-candidate sentinel — it also swallows the worthless
-    # (dist=32768, lcp=3) corner (zlib's TOO_FAR drops len-3 beyond
-    # 4 KiB anyway).  (Fusing the unsort network too was measured and
-    # rejected — see sort_scan_candidates.)
-    key2, m_s = sort_scan_candidates(key, pos, *ws, window=window,
-                                     scan_k=scan_k)
-    ks2, m_o = sort_pairs(key2, m_s)
-    u = ks2.astype(jnp.uint32) ^ jnp.uint32(0x80000000)
-    pos_o = (u >> 16).astype(jnp.int32)
-    dist_o = (u & 0x7FFF).astype(jnp.int32)
-    ext_o = ((u >> 15) & 1).astype(jnp.int32)
-    none = (ext_o == 0) & (dist_o == 0x7FFF)
-    cand = jnp.where(none, -1, pos_o - dist_o - 1)
-    m = jnp.where(none, 0, jnp.minimum(m_o, m_exact))
-    return cand[:, :n], m[:, :n]
+    best_score = jnp.full((bsz, n), -1, jnp.int32)
+    best_cand = jnp.full((bsz, n), -1, jnp.int32)
+    best_l = jnp.zeros((bsz, n), jnp.int32)
+    for k in range(1, scan_k + 1):
+        x = key ^ _shift(key, k, 0)
+        lcp = _lead_bytes(x)
+        all_eq = x == 0
+        for i, w in enumerate(words, start=1):
+            xi = w ^ _shift(w, k, 0)
+            lcp = jnp.where(all_eq, 4 * i + _lead_bytes(xi), lcp)
+            all_eq = all_eq & (xi == 0)
+        # the fill makes dist negative at the row head: rejected
+        pp = _shift(spos, k, n)
+        dist = spos - pp
+        ok = (dist > 0) & (dist <= window) & (lcp >= 3)
+        score = (lcp << 17) + (window - dist)
+        upd = ok & (score > best_score)
+        best_score = jnp.where(upd, score, best_score)
+        best_cand = jnp.where(upd, pp, best_cand)
+        best_l = jnp.where(upd, lcp, best_l)
+
+    rows = jnp.arange(bsz, dtype=jnp.int32)[:, None]
+    cand = jnp.zeros((bsz, n), jnp.int32).at[rows, spos].set(
+        best_cand, unique_indices=True)
+    m = jnp.zeros((bsz, n), jnp.int32).at[rows, spos].set(
+        jnp.minimum(best_l, m_exact), unique_indices=True)
+    return cand, m

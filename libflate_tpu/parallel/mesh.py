@@ -1,12 +1,12 @@
 """Device mesh helpers for block/member-parallel codec scale-out.
 
-The reference is single-threaded (SURVEY.md §2.3); the TPU framework's
+The reference is single-threaded (SURVEY.md §2.3); the framework's
 distribution model is:
 
 * a 1-D ``blocks`` mesh axis — DEFLATE blocks / gzip members are
   embarrassingly parallel (per-block LZ77 reset, SURVEY.md §2.3.1);
-* checksum folding via exact CRC/Adler combine operators (ICI-friendly
-  log-depth reductions instead of serial update);
+* checksum folding via exact CRC/Adler combine operators (log-depth
+  reductions instead of serial update);
 * ordered gather of variable-length member outputs on the host edge.
 """
 from __future__ import annotations

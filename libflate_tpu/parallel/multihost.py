@@ -6,7 +6,7 @@ SURVEY §2.3.5 / §5 distribution model, scaled past one host:
   member_size boundaries, so every gzip member is wholly owned by one
   process (per-member LZ77 reset keeps them independent; no halo).
 * **Local encode** — each process runs its own engine (native threads
-  or the TPU pipeline) over its slab; intra-host parallelism is
+  or the device pipeline) over its slab; intra-host parallelism is
   unchanged.
 * **Ordered gather** — variable-length member bytes are exchanged with
   ``multihost_utils.process_allgather`` (DCN collectives), then

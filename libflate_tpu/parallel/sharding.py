@@ -1,28 +1,28 @@
-"""Sharded (multi-chip) encode/decode over a jax.sharding.Mesh.
+"""Sharded (multi-device) encode/decode over a jax.sharding.Mesh.
 
 The codec pipelines in libflate_tpu.ops are written block-elementwise
-over the leading batch axis, so multi-chip execution is pure data
+over the leading batch axis, so multi-device execution is pure data
 parallelism: annotate the block axis with a NamedSharding and jit — XLA
 partitions every stage (sort, scan, scatter, matmul) per shard with no
-cross-device traffic except the host-edge gather.  Checksums fold
-across shards with the exact CRC-combine operator (log-depth, ICI-sized
-payloads of 4 bytes per shard).
+cross-device traffic except the shared-table histogram's all-reduce
+and the host-edge gather.  The sync decode kernel runs per device under
+``shard_map``.  Checksums fold across shards with the exact CRC-combine
+operator.
 
-This is the TPU-native replacement for what a CPU library would do with
-threads — the reference has no parallel path at all (SURVEY.md §2.3).
+This replaces what a CPU library would do with threads — the reference
+has no parallel path at all (SURVEY.md §2.3).
 
-Example (8 virtual devices work too — set
+Example (virtual CPU devices work too — set
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8``)::
 
     from libflate_tpu.parallel.mesh import make_mesh
     from libflate_tpu.parallel.sharding import (encode_sync_sharded,
-                                                shard_crc32)
+                                                decompress_to_device_sharded)
 
-    mesh = make_mesh(8)                    # 1-D "blocks" axis
-    blocks = corpus.reshape(64, 65536)     # 64 members, 8 per device
+    mesh = make_mesh(4)                    # 1-D "blocks" axis
     words, bits, counts, offsets = encode_sync_sharded(
         blocks, n_valid, bfinal, k=256, mesh=mesh)
-    whole = combine_shard_crcs(per_shard_crcs, shard_lengths)
+    plain, lengths = decompress_to_device_sharded(stream, mesh)
 """
 from __future__ import annotations
 
@@ -31,12 +31,13 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import PartitionSpec as P
 
-from ..ops.deflate_decode import (decode_symbols, expand_tokens_device,
-                                  tables_from_lengths)
+from ..ops.deflate_decode import decode_symbols, tables_from_lengths
+from ..ops.device_expand import expand_tokens
 from ..ops.pipeline import _encode_batch
 from ..utils.checksum import crc32_combine
-from .mesh import block_sharding, make_mesh
+from .mesh import BLOCK_AXIS, block_sharding, make_mesh
 
 
 @functools.lru_cache(maxsize=8)
@@ -87,7 +88,7 @@ def decode_members_sharded(words: np.ndarray, starts: np.ndarray,
     def _run(w, s, ll, dl, cap):
         lit_t, dist_t = tables_from_lengths(ll, dl)
         a, b, nt, _end, err = decode_symbols(w, s, lit_t, dist_t, cap + 2)
-        out, n_out, xerr = expand_tokens_device(a, b, nt, cap)
+        out, n_out, xerr = expand_tokens(a, b, nt, cap)
         return out, n_out, err | xerr
 
     out, n_out, err = _run(
@@ -103,29 +104,30 @@ def encode_sync_sharded(blocks: np.ndarray, n_valid: np.ndarray,
                         bfinal: np.ndarray, k: int, mesh=None):
     """Flagship path, mesh-sharded: shared-table sync encode.
 
-    The PGZF production pipeline's XLA twin — batch-global histograms
-    (the per-shard sums cross shard boundaries, so XLA inserts
-    all-reduce collectives over the mesh axis), one shared Huffman
-    header per member, and the per-member sync offsets (the "LS" index
-    the sync decode kernel consumes).
+    The PGZF production pipeline — batch-global histograms (the
+    per-shard sums cross shard boundaries, so XLA inserts all-reduce
+    collectives over the mesh axis), one shared Huffman header per
+    member, and the per-member sync offsets (the "LS" index the sync
+    decoder consumes).  Every member is one final block, so ``bfinal``
+    is not read.
 
     Returns host numpy (words (B, W) uint32, bits (B,), n_tokens (B,),
     offsets (B, S) int32).
     """
     from ..ops.pipeline import _encode_batch_sync
+    del bfinal
     mesh = mesh or make_mesh()
     sh = block_sharding(mesh)
 
-    @functools.partial(jax.jit, static_argnums=(3,),
-                       in_shardings=(sh, sh, sh),
-                       out_shardings=(sh, sh, sh, sh, sh))
-    def _run(b, nv, bf, kk):
-        return _encode_batch_sync(b, nv, bf, kk)
+    @functools.partial(jax.jit, static_argnums=(2,),
+                       in_shardings=(sh, sh),
+                       out_shardings=(sh, sh, sh, sh))
+    def _run(b, nv, kk):
+        return _encode_batch_sync(b, nv, kk)
 
-    words, bits, cnt, offsets, _ovf = _run(
+    words, bits, cnt, offsets = _run(
         jax.device_put(jnp.asarray(blocks), sh),
-        jax.device_put(jnp.asarray(n_valid), sh),
-        jax.device_put(jnp.asarray(bfinal), sh), k)
+        jax.device_put(jnp.asarray(n_valid), sh), k)
     return (np.asarray(words), np.asarray(bits), np.asarray(cnt),
             np.asarray(offsets))
 
@@ -134,49 +136,113 @@ def decode_sync_sharded(words: np.ndarray, chunk_bits: np.ndarray,
                         chunk_counts: np.ndarray,
                         lit_lengths: np.ndarray, dist_lengths: np.ndarray,
                         k: int, mesh=None):
-    """Chunk-parallel sync decode across the mesh (XLA twin of
-    ops/pallas_sync_decode): every K-token chunk decodes independently
-    from its LS bit offset, chunks data-parallel over the mesh.
+    """Chunk-parallel sync decode across the mesh (ops/sync_decode under
+    ``shard_map``): every K-token chunk decodes independently from its
+    LS bit offset, chunks split evenly over the devices.
 
-    words: (C, W) uint32 per-chunk word views (replicate the member's
-    words per chunk); chunk_bits: (C,) int32 absolute start bits;
-    chunk_counts: (C,) tokens per chunk (<= k); lit/dist lengths are
-    the SHARED code set (1, 286)/(1, 30).
+    words: (C, W) uint32 per-chunk word views (chunk c's bits start at
+    bit ``chunk_bits[c]`` of row c); chunk_counts: (C,) tokens per
+    chunk (<= k); lit/dist lengths are the SHARED code set
+    (1, 286)/(1, 30).
 
     Returns packed tokens (C, k) int32 (a | b<<9).
     """
-    from ..ops.deflate_decode import _symbol_step
+    from ..ops import sync_decode as sd
     mesh = mesh or make_mesh()
-    sh = block_sharding(mesh)
-    c_n = words.shape[0]
+    n_dev = mesh.size
+    c_n, w = words.shape
+    per = -(-max(c_n, 1) // n_dev)
+    per = -(-per // sd.BLOCK) * sd.BLOCK
 
-    @functools.partial(jax.jit, static_argnums=(5,),
-                       in_shardings=(sh, sh, sh, None, None),
-                       out_shardings=sh)
-    def _run(w, s, cnts, ll, dl, kk):
-        lit_t, dist_t = tables_from_lengths(ll, dl)
-        lit_t = jnp.broadcast_to(lit_t, (w.shape[0], lit_t.shape[1]))
-        dist_t = jnp.broadcast_to(dist_t, (w.shape[0], dist_t.shape[1]))
+    def pad(x):
+        out = np.zeros((n_dev * per,) + x.shape[1:], x.dtype)
+        out[:c_n] = x
+        return out
 
-        def step(carry, i):
-            pos = carry
-            a, b, new_pos, _eob, _bad = _symbol_step(w, pos, lit_t,
-                                                     dist_t)
-            active = i < cnts
-            pos = jnp.where(active, new_pos, pos)
-            tok = jnp.where(active,
-                            jnp.clip(a, 0, 511) | (b << 9), 0)
-            return pos, tok
+    rb = max(int(np.max(lit_lengths)), 7)
+    lit_t, dist_t = sd.decode_tables(
+        np.asarray(lit_lengths)[:, :286], np.asarray(dist_lengths), rb)
 
-        _, toks = jax.lax.scan(step, s.astype(jnp.int32),
-                               jnp.arange(kk, dtype=jnp.int32))
-        return jnp.transpose(toks)                 # (C, k)
+    def shard_fn(wd, cb, cnt):
+        flat = jnp.concatenate([wd.reshape(-1),
+                                jnp.zeros((sd.SLACK_WORDS,), jnp.uint32)])
+        cw = jnp.arange(per, dtype=jnp.int32) * w + (cb >> 5)
+        toks, _end = sd.sync_decode(flat, cw, cb & 31, cnt,
+                                    jnp.zeros((per,), jnp.int32), lit_t,
+                                    dist_t, k_tokens=k, root_bits=rb)
+        return toks.T
 
-    return np.asarray(_run(
-        jax.device_put(jnp.asarray(words), sh),
-        jax.device_put(jnp.asarray(chunk_bits), sh),
-        jax.device_put(jnp.asarray(chunk_counts), sh),
-        jnp.asarray(lit_lengths), jnp.asarray(dist_lengths), k))
+    ax = P(BLOCK_AXIS)
+    fn = jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=(ax, ax, ax),
+                               out_specs=ax, check_vma=False))
+    toks = fn(jnp.asarray(pad(np.asarray(words, np.uint32))),
+              jnp.asarray(pad(np.asarray(chunk_bits, np.int32))),
+              jnp.asarray(pad(np.asarray(chunk_counts, np.int32))))
+    return np.asarray(toks)[:c_n]
+
+
+def decompress_to_device_sharded(data: bytes, mesh=None,
+                                 verify: bool = False):
+    """``pgzf.decompress_to_device`` for a sync-indexed PGZF stream with
+    its members split evenly over the mesh: each device runs the whole
+    decode chain (sync decode, reorder, expansion, CRC) on its members
+    under ``shard_map``; the compressed stream and code tables are
+    replicated.  Returns (out (n_members, member_cap) uint8 sharded by
+    member, lengths (n_members,) int32).
+    """
+    from ..formats import pgzf
+    from ..formats.gzip import GzipError
+    from ..ops.checksum import crc32_from_padded_f
+    from ..ops.sync_decode import decode_tables
+    from ..serial.deflate import DeflateError
+
+    mesh = mesh or make_mesh()
+    n_dev = mesh.size
+    data = bytes(data)
+    refs = pgzf.index_members(data)
+    plan = pgzf._sync_plan(data, refs) if refs is not None else None
+    if plan is None or not plan.device_ok.all():
+        raise DeflateError("not a fully sync-indexed PGZF stream")
+    n = len(refs)
+    per = -(-n // n_dev)
+    cols = [[] for _ in range(6)]
+    nt = np.zeros((n_dev * per,), np.int32)
+    for d in range(n_dev):
+        idx = np.arange(d * per, min((d + 1) * per, n))
+        args, lo, hi = pgzf._chunk_args(plan, idx, per)
+        for c, x in zip(cols, args + [lo, hi]):
+            c.append(x)
+        nt[d * per:d * per + len(idx)] = plan.n_tokens[idx]
+    cw, cb, cnt, tab, lo, hi = (jnp.asarray(np.concatenate(c))
+                                for c in cols)
+    lit_t, dist_t = decode_tables(plan.lit_lengths, plan.dist_lengths,
+                                  plan.root_bits)
+
+    def shard_fn(words, cw, cb, cnt, tab, lo, hi, nt):
+        return pgzf._sync_chain_body(
+            words, cw, cb, cnt, tab, lit_t, dist_t, lo, hi, nt,
+            k_tok=plan.k_tok, root_bits=plan.root_bits,
+            max_nc=plan.chunk_word.shape[1], member_cap=plan.member_cap,
+            expand=True)
+
+    ax = P(BLOCK_AXIS)
+    fn = jax.jit(jax.shard_map(
+        shard_fn, mesh=mesh, in_specs=(P(),) + (ax,) * 7,
+        out_specs=(ax, ax, ax), check_vma=False))
+    plain, err, crc_f = fn(jnp.asarray(plan.words), cw, cb, cnt, tab, lo,
+                           hi, jnp.asarray(nt))
+    err = np.asarray(err)[:n]
+    if err.any():
+        raise DeflateError(f"device decode failed in member "
+                           f"{int(np.argmax(err))}")
+    if verify:
+        crcs = crc32_from_padded_f(np.asarray(crc_f)[:n], plan.isizes,
+                                   plan.member_cap)
+        bad = crcs != plan.crcs_expected
+        if bad.any():
+            raise GzipError(f"gzip CRC mismatch in member "
+                            f"{int(np.argmax(bad))}")
+    return plain[:n], jnp.asarray(plan.isizes, jnp.int32)
 
 
 def combine_shard_crcs(crcs: list[int], lengths: list[int]) -> int:

@@ -1,7 +1,7 @@
 """Serial DEFLATE block codec — the framework's host-side correctness oracle.
 
 Encodes/decodes raw DEFLATE streams (RFC-1951) with all three block types.
-This path is intentionally simple and branch-complete; the TPU pipeline in
+This path is intentionally simple and branch-complete; the device pipeline in
 ``libflate_tpu.ops`` is differential-tested against it (and both against
 Python's ``zlib``).
 
@@ -43,15 +43,11 @@ class EncodeOptions:
     max_match: int = C.MAX_MATCH
     max_chain: int = 32
     lazy: bool = True
-    #: device-only: token-slot budget per 512-position parse chunk
-    #: (ops/pipeline.PARSE_CAP when None); the serial matchers ignore it
-    parse_cap: int | None = None
     #: device-only: total LCP extension rounds (match length cap =
-    #: 4*rounds).  None = the device default: with the sort matcher's
-    #: exact 16-byte lengths the LCP kernel is SKIPPED entirely
-    #: (lengths cap at 16; dist-1 runs stay exact by arithmetic);
-    #: set e.g. 6 to extend matches to 24 bytes for ~0.5% better ratio
-    #: at ~+15% device encode time.  The serial matchers ignore it.
+    #: 4*rounds).  None = the device default: the sort matcher's exact
+    #: 16-byte lengths are used as they are (dist-1 runs stay exact by
+    #: arithmetic); e.g. 6 extends matches to 24 bytes with the XLA
+    #: LCP.  The serial matchers ignore it.
     lcp_rounds: int | None = None
 
     def tokenize(self, data: bytes) -> list[Token]:

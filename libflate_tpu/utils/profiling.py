@@ -1,6 +1,6 @@
 """Profiling / tracing helpers (SURVEY.md §5 aux-subsystem parity).
 
-The reference has only a wall-clock bench (flate_bench); the TPU
+The reference has only a wall-clock bench (flate_bench); the
 framework exposes `jax.profiler` traces plus a lightweight stage-timer
 so pipelines can be rooflined per kernel.
 """

@@ -1,5 +1,5 @@
-"""Device expansion v2 (mod-collapse + Pallas-gather doubling) vs the
-serial oracle, on CPU in interpret mode."""
+"""Device expansion (mod-collapse + pointer jumping) vs the serial
+oracle."""
 import numpy as np
 import pytest
 
@@ -8,12 +8,6 @@ import jax.numpy as jnp
 
 from libflate_tpu.serial.lz77 import (chain_tokens, expand_tokens,
                                       greedy_tokens)
-
-
-@pytest.fixture()
-def interpret(monkeypatch):
-    monkeypatch.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
-    yield
 
 
 def _corpus(n, seed=7):
@@ -32,7 +26,7 @@ def _pack(tokens, t_cap):
 
 
 @pytest.mark.parametrize("matcher", ["greedy", "chain"])
-def test_expand_members_matches_serial(interpret, matcher):
+def test_expand_members_matches_serial(matcher):
     from libflate_tpu.ops.device_expand import expand_members
 
     out_cap = 2048
@@ -56,7 +50,7 @@ def test_expand_members_matches_serial(interpret, matcher):
         assert out[i, :n_out[i]].tobytes() == data
 
 
-def test_expand_members_rle_runs(interpret):
+def test_expand_members_rle_runs():
     """Deep RLE chains (dist < len) collapse via the mod trick."""
     from libflate_tpu.ops.device_expand import expand_members
 
@@ -80,7 +74,7 @@ def test_expand_members_rle_runs(interpret):
         assert out[i, :n_out[i]].tobytes() == data
 
 
-def test_expand_members_bad_distance_flagged(interpret):
+def test_expand_members_bad_distance_flagged():
     from libflate_tpu.ops.device_expand import expand_members
 
     packed = np.zeros((1, 8), np.int32)
@@ -91,7 +85,7 @@ def test_expand_members_bad_distance_flagged(interpret):
     assert bool(np.asarray(err)[0])
 
 
-def test_expand_members_overflow_flagged(interpret):
+def test_expand_members_overflow_flagged():
     from libflate_tpu.ops.device_expand import expand_members
 
     packed = np.zeros((1, 64), np.int32)

@@ -1,16 +1,10 @@
-"""Fused chase+materialize kernel (ops/pallas_expand) vs a numpy
-oracle, on CPU in interpret mode."""
+"""Pointer jumping (ops/device_expand.resolve_bytes) vs a numpy
+oracle."""
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
-
-
-@pytest.fixture()
-def interpret(monkeypatch):
-    monkeypatch.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
-    yield
 
 
 def _oracle(src, lit):
@@ -41,8 +35,8 @@ def _random_case(rng, n):
 
 
 @pytest.mark.parametrize("n", [1024, 4096])
-def test_resolve_bytes_random(interpret, n):
-    from libflate_tpu.ops.pallas_expand import resolve_bytes
+def test_resolve_bytes_random(n):
+    from libflate_tpu.ops.device_expand import resolve_bytes
 
     rng = np.random.default_rng(3)
     srcs, lits, want = [], [], []
@@ -51,19 +45,18 @@ def test_resolve_bytes_random(interpret, n):
         srcs.append(src)
         lits.append(lit)
         want.append(_oracle(src, lit))
-    out = np.asarray(resolve_bytes(jnp.asarray(np.stack(srcs)),
-                                   jnp.asarray(np.stack(lits))))
+    out = np.asarray(jax.vmap(resolve_bytes)(jnp.asarray(np.stack(srcs)),
+                                             jnp.asarray(np.stack(lits))))
     assert (out == np.stack(want)).all()
 
 
-def test_resolve_bytes_worst_case_chain(interpret):
+def test_resolve_bytes_worst_case_chain():
     """One chain spanning the whole member: src[p] = p - 1."""
-    from libflate_tpu.ops.pallas_expand import resolve_bytes
+    from libflate_tpu.ops.device_expand import resolve_bytes
 
     n = 2048
     src = np.maximum(np.arange(n, dtype=np.int32) - 1, 0)
     lit = np.zeros(n, np.int32)
     lit[0] = 77
-    out = np.asarray(resolve_bytes(jnp.asarray(src[None]),
-                                   jnp.asarray(lit[None])))
+    out = np.asarray(resolve_bytes(jnp.asarray(src), jnp.asarray(lit)))
     assert (out == 77).all()

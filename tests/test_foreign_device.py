@@ -1,8 +1,8 @@
 """Foreign-stream device decode (pgzf._foreign_to_device).
 
 Streams from OTHER producers — stdlib gzip here — carry per-member
-dynamic/fixed/stored blocks and no LF/LS index, so the shared-table TPU
-symbol kernels cannot apply.  The bridge runs the sequential entropy
+dynamic/fixed/stored blocks and no LF/LS index, so the shared-table
+sync decoder cannot apply.  The bridge runs the sequential entropy
 phase in the C engine (token decode, no byte materialization) and the
 LZ77 expansion + CRC in the same device chain as the sync path.
 Reference capability: src/deflate/decode.rs:136-164 (arbitrary
@@ -23,12 +23,7 @@ pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="needs the native engine")
 
 
-def _interp(monkeypatch):
-    monkeypatch.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
-
-
-def test_stdlib_multi_member(monkeypatch):
-    _interp(monkeypatch)
+def test_stdlib_multi_member():
     rng = np.random.default_rng(0)
     base = b"the quick brown fox jumps over the lazy dog " * 300
     chunks = []
@@ -44,8 +39,7 @@ def test_stdlib_multi_member(monkeypatch):
         assert bytes(out[i, :lens[i]].tobytes()) == c
 
 
-def test_single_member_and_stored(monkeypatch):
-    _interp(monkeypatch)
+def test_single_member_and_stored():
     base = b"abcabcabc" * 3000
     out, lens = pgzf.decompress_to_device(gzip.compress(base, 9))
     assert bytes(np.asarray(out)[0, :int(np.asarray(lens)[0])]
@@ -56,8 +50,7 @@ def test_single_member_and_stored(monkeypatch):
                  .tobytes()) == blob
 
 
-def test_corruption_detected(monkeypatch):
-    _interp(monkeypatch)
+def test_corruption_detected():
     base = b"the quick brown fox " * 1000
     bad = bytearray(gzip.compress(base))
     bad[-5] ^= 0xFF                   # trailer CRC byte

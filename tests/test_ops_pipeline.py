@@ -10,11 +10,9 @@ import jax.numpy as jnp
 
 from libflate_tpu.ops.bitpack import pack_fields, words_to_bytes
 from libflate_tpu.ops.deflate_decode import inflate_device
-from libflate_tpu.ops.lz77 import tokenize_block
 from libflate_tpu.ops.pipeline import deflate_device
 from libflate_tpu.serial.bitio import BitWriter
 from libflate_tpu.serial.deflate import EncodeOptions, deflate
-from libflate_tpu.serial.lz77 import expand_tokens, greedy_tokens
 
 
 class TestBitpack:
@@ -34,34 +32,6 @@ class TestBitpack:
         words, total = pack_fields(jnp.asarray([5, 7], jnp.int32),
                                    jnp.asarray([0, 0], jnp.int32))
         assert int(total) == 0
-
-
-class TestTokenizer:
-    N = 8192
-
-    def _device_tokens(self, data: bytes):
-        padded = np.zeros(self.N, np.uint8)
-        padded[:len(data)] = np.frombuffer(data, np.uint8)
-        a, b, cnt = tokenize_block(jnp.asarray(padded),
-                                   jnp.int32(len(data)), self.N)
-        return [(int(x), int(y)) for x, y in
-                zip(np.asarray(a)[:int(cnt)], np.asarray(b)[:int(cnt)])]
-
-    @pytest.mark.parametrize("case", [
-        b"aaaaa", b"Hello World! Hello World!", b"", b"ab",
-        b"abcabcabcabc" * 100,
-    ])
-    def test_exact_parity_with_serial_greedy(self, case):
-        assert self._device_tokens(case) == greedy_tokens(case)
-
-    def test_random_data_roundtrip(self):
-        rng = np.random.default_rng(1)
-        for gen in (lambda: bytes(rng.integers(0, 256, 4000, dtype=np.uint8)),
-                    lambda: bytes(rng.integers(0, 3, 6000, dtype=np.uint8))):
-            data = gen()
-            toks = self._device_tokens(data)
-            assert bytes(expand_tokens(toks)) == data
-            assert toks == greedy_tokens(data)
 
 
 class TestDeviceEncode:

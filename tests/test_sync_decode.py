@@ -1,7 +1,7 @@
-"""Sync-indexed PGZF mode: LS subfield + zero-speculation Pallas decode.
+"""Sync-indexed PGZF mode: LS subfield + zero-speculation device decode.
 
-Kernel semantics are pinned on CPU via pallas interpret mode; the
-compiled path is exercised on TPU by bench.py / standalone scripts.
+On the CPU the sync decode kernel runs in the Pallas interpreter; the
+compiled kernel is exercised on the GPU by chip_smoke.py.
 """
 import gzip as stdgzip
 import struct
@@ -15,12 +15,6 @@ import jax.numpy as jnp
 from libflate_tpu.formats import pgzf
 
 
-@pytest.fixture()
-def sync_interpret(monkeypatch):
-    monkeypatch.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
-    yield
-
-
 def _corpus(n, seed=7):
     rng = np.random.default_rng(seed)
     words = [bytes(rng.integers(97, 123, rng.integers(3, 10),
@@ -30,14 +24,12 @@ def _corpus(n, seed=7):
 
 
 class TestSyncKernel:
-    def test_tokens_match_tokenizer(self, sync_interpret):
+    def test_tokens_match_tokenizer(self):
         """Kernel tokens == the device tokenizer's, chunk by chunk."""
-        from libflate_tpu.ops import pallas_sync_decode as psd
+        from libflate_tpu.ops import sync_decode as sd
         from libflate_tpu.ops.deflate_encode import splice_blocks_host
-        from libflate_tpu.ops.huffman import decode_table
         from libflate_tpu.ops.pipeline import (_encode_batch_sync,
-                                               _shared_stats,
-                                               _tokenize_batch)
+                                               _shared_stats, _tokenize)
         K = 32
         B = 4
         member = 2048
@@ -48,52 +40,43 @@ class TestSyncKernel:
             chunk = data[i * member:(i + 1) * member]
             blocks[i, :len(chunk)] = np.frombuffer(chunk, np.uint8)
             n_valid[i] = len(chunk)
-        bfinal = np.ones((B,), np.int32)
 
-        words, bits, cnt, offs, _ovf = map(np.asarray, _encode_batch_sync(
-            jnp.asarray(blocks), jnp.asarray(n_valid),
-            jnp.asarray(bfinal), K))
-        a, b, _ = map(np.asarray, _tokenize_batch(
+        words, bits, cnt, offs = map(np.asarray, _encode_batch_sync(
+            jnp.asarray(blocks), jnp.asarray(n_valid), K))
+        a, b, _ = map(np.asarray, _tokenize(
             jnp.asarray(blocks), jnp.asarray(n_valid)))
         valid = (np.arange(a.shape[1], dtype=np.int32)[None, :]
                  < cnt[:, None])
         # must match _encode_batch_sync's table build (SHARED_MAX_LEN);
-        # a 12-bit root over <=10-bit codes also covers the default-
+        # a 12-bit root over <=10-bit codes also covers the widest
         # root_bits decode path
         lit_l, dist_l, *_r = _shared_stats(
             jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid))
-        lit_t = decode_table(jnp.asarray(lit_l), 12)
-        dist_t = decode_table(jnp.asarray(dist_l), 8)
+        lit_t, dist_t = sd.decode_tables(np.asarray(lit_l)[None],
+                                         np.asarray(dist_l)[None], 12)
 
-        all_offs, all_ext, all_cnt, spans = [], [], [], []
+        starts, counts, spans = [], [], []
         blob = bytearray()
         for i in range(B):
-            body = splice_blocks_host(words[i:i + 1], bits[i:i + 1])
             base = len(blob) * 8
-            blob += body
+            blob += splice_blocks_host(words[i:i + 1], bits[i:i + 1])
             nc = -(-int(cnt[i]) // K)
             for j in range(nc):
-                start = int(offs[i, j])
-                end = (int(offs[i, j + 1]) if (j + 1) * K <= int(cnt[i])
-                       else int(bits[i]))
-                all_offs.append(base + start)
-                all_ext.append(end - start)
-                all_cnt.append(min(K, int(cnt[i]) - j * K))
+                starts.append(base + int(offs[i, j]))
+                counts.append(min(K, int(cnt[i]) - j * K))
             spans.append((i, nc))
-
-        need = int(max(e + (o & 31) for o, e in
-                       zip(all_offs, all_ext)) + 64 + 31) // 32 + 1
-        d = max(8, -(-need // 4) * 4)
-        staged, sb = psd.stage_chunks(bytes(blob),
-                                      np.asarray(all_offs, np.int64),
-                                      np.asarray(all_ext, np.int64), d)
-        counts = np.zeros(staged.shape[0] * psd.SLOTS, np.int32)
-        counts[:len(all_cnt)] = all_cnt
-        counts = counts.reshape(staged.shape[0], psd.SUBLANES, psd.LANES)
-        out = np.asarray(psd.sync_decode(
-            jnp.asarray(staged), jnp.asarray(sb), jnp.asarray(counts),
-            lit_t.astype(jnp.int32), dist_t.astype(jnp.int32), d_k := K))
-        toks = psd.gather_tokens(out, len(all_offs), K)
+        s_n = len(starts)
+        s_pad = -(-s_n // sd.BLOCK) * sd.BLOCK
+        ab = np.zeros(s_pad, np.int64)
+        ab[:s_n] = starts
+        cn = np.zeros(s_pad, np.int32)
+        cn[:s_n] = counts
+        toks, _end = sd.sync_decode(
+            jnp.asarray(sd.stream_words(bytes(blob))),
+            jnp.asarray((ab >> 5).astype(np.int32)),
+            jnp.asarray((ab & 31).astype(np.int32)), jnp.asarray(cn),
+            jnp.zeros((s_pad,), jnp.int32), lit_t, dist_t, k_tokens=K)
+        toks = np.asarray(toks).T
 
         s = 0
         for i, nc in spans:
@@ -104,7 +87,7 @@ class TestSyncKernel:
 
 
 class TestSyncContainer:
-    def test_roundtrip_and_stock_gzip(self, sync_interpret):
+    def test_roundtrip_and_stock_gzip(self):
         data = _corpus(200000) + bytes(
             np.random.default_rng(1).integers(0, 256, 40000,
                                               dtype=np.uint8))
@@ -113,23 +96,25 @@ class TestSyncContainer:
         assert stdgzip.decompress(stream) == data
         # sync path decodes
         refs = pgzf.index_members(stream)
-        assert pgzf._decompress_sync_device(stream, refs, True) == data
+        plan = pgzf._sync_plan(stream, refs)
+        assert pgzf._decompress_sync_device(stream, refs, plan, True) \
+            == data
         # dispatcher routes to it
         assert pgzf.decompress(stream, engine="tpu") == data
         # other engines also decode it
         assert pgzf.decompress(stream, engine="native") == data
 
     @pytest.mark.parametrize("member_size", [3072, 24576])
-    def test_non_pow2_member_size_crc(self, sync_interpret, member_size):
+    def test_non_pow2_member_size_crc(self, member_size):
         """Round-2 ADVICE regression: crc32_f_rows with a member size
         whose 64-byte chunk count is not a power of two wrote corrupt
-        gzip CRC32 fields on the tpu engine."""
+        gzip CRC32 fields on the device engine."""
         data = _corpus(member_size * 3 + 1234)
         stream = pgzf.compress(data, member_size=member_size, engine="tpu")
         assert stdgzip.decompress(stream) == data          # CRCs verify
         assert pgzf.decompress(stream, verify=True) == data
 
-    def test_ls_subfield_parse(self, sync_interpret):
+    def test_ls_subfield_parse(self):
         data = _corpus(100000)
         stream = pgzf.compress(data, member_size=32768, engine="tpu")
         from libflate_tpu.formats import gzip as fgzip
@@ -142,7 +127,7 @@ class TestSyncContainer:
         assert len(deltas) == n_chunks - 1
         assert (np.asarray(deltas) > 0).all()
 
-    def test_corrupt_sync_index_falls_back_or_raises(self, sync_interpret):
+    def test_corrupt_sync_index_falls_back_or_raises(self):
         data = _corpus(100000)
         stream = bytearray(pgzf.compress(data, member_size=32768,
                                          engine="tpu"))
@@ -153,47 +138,44 @@ class TestSyncContainer:
         ls_pos = bytes(stream).find(b"LS", 0, body)
         assert ls_pos > 0
         stream[ls_pos + 2 + 2 + 14] ^= 0x40
-        refs = pgzf.index_members(bytes(stream))
         with pytest.raises(Exception):
-            out = pgzf._decompress_sync_device(bytes(stream), refs, True)
+            out = pgzf.decompress(bytes(stream), engine="tpu")
             assert out != data  # pragma: no cover - must raise above
 
-    def test_native_stream_without_ls_falls_back(self, sync_interpret):
+    def test_native_stream_without_ls_falls_back(self):
         native = pytest.importorskip("libflate_tpu.native")
         if not native.available():
             pytest.skip("native engine unavailable")
         data = _corpus(100000)
         stream = pgzf.compress(data, member_size=32768, engine="native")
         refs = pgzf.index_members(stream)
-        with pytest.raises(ImportError):
-            pgzf._decompress_sync_device(stream, refs, True)
+        assert pgzf._sync_plan(stream, refs) is None
         assert pgzf.decompress(stream, engine="tpu") == data
 
 
 class TestKernelDebugChecks:
-    def test_poison_on_corrupt_index(self, sync_interpret, monkeypatch):
-        """SURVEY §5 debug_assert parity: with LIBFLATE_DEBUG_CHECKS the
-        kernel tags slots whose cursor escapes the staged window and the
-        host raises a typed error instead of relying on CRC."""
-        monkeypatch.setenv("LIBFLATE_DEBUG_CHECKS", "1")
+    def test_poison_on_corrupt_index(self):
+        """SURVEY §5 debug_assert parity: every chunk's final cursor is
+        checked against the next chunk's LS offset, so a corrupt index
+        raises a typed error instead of relying on the CRC."""
+        from libflate_tpu.serial.deflate import DeflateError
         data = _corpus(120000)
         stream = bytearray(pgzf.compress(data, member_size=32768,
                                          engine="tpu"))
-        # clean stream still decodes with checks on
-        refs = pgzf.index_members(bytes(stream))
-        assert pgzf._decompress_sync_device(bytes(stream), refs, True) \
-            == data
+        assert pgzf.decompress(bytes(stream), engine="tpu",
+                               verify=False) == data
         # corrupt a mid-stream LS delta so a chunk starts far off
         ls = bytes(stream).find(b"LS")
         assert ls > 0
         stream[ls + 4 + 15] ^= 0xFF
-        refs = pgzf.index_members(bytes(stream))
-        with pytest.raises(Exception):
-            pgzf._decompress_sync_device(bytes(stream), refs, True)
+        with pytest.raises(DeflateError):
+            pgzf.decompress(bytes(stream), engine="tpu", verify=False)
+        with pytest.raises(DeflateError):
+            pgzf.decompress_to_device(bytes(stream))
 
 
 class TestDecompressToDevice:
-    def test_plaintext_stays_on_device(self, sync_interpret):
+    def test_plaintext_stays_on_device(self):
         """decompress_to_device: sync kernel -> device token reorder ->
         on-device LZ77 expansion; plaintext rows verified against the
         source without any engine-level D2H in between."""
@@ -208,8 +190,7 @@ class TestDecompressToDevice:
             pieces.append(out_np[i, :int(ln)].tobytes())
         assert b"".join(pieces) == data
 
-    def test_non_indexed_stream_takes_foreign_bridge(self,
-                                                     sync_interpret):
+    def test_non_indexed_stream_takes_foreign_bridge(self):
         # round 5: streams without the LS sync index no longer reject —
         # they fall through to the foreign C-token bridge
         # (pgzf._foreign_to_device) and still land device-resident
@@ -226,7 +207,7 @@ class TestDecompressToDevice:
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_sync_container_content_fuzz(sync_interpret, seed):
+def test_sync_container_content_fuzz(seed):
     """Randomized payload mixes through device encode -> every decoder."""
     rng = np.random.default_rng(100 + seed)
     parts = []
